@@ -1,0 +1,212 @@
+"""Public job API: PopSift / SiftJob / FeaturesHost / FeaturesDev.
+
+Port of :mod:`popsift_tpu.api` (the reference's popsift.h:40-167 and
+features.h:65-118) on a PyTorch device chosen explicitly. ``enqueue``
+runs the extraction (CUDA work is queued on the current stream; the
+launch-sizing counts are read back on the way) and returns a
+:class:`SiftJob`; ``get`` brings the result to the host.
+
+Not ported yet: ``FeaturesDev.match``, ``PopSift.enqueue_batch`` and
+``PopSift.calibrate`` (ROADMAP A10/A11).
+"""
+
+from __future__ import annotations
+
+import threading
+import warnings
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .config import SiftConfig
+from .pipeline import (ExtractPlan, SiftFeatures, build_extract_plan,
+                       extract, saturation_report)
+from .utils.device import resolve_device
+
+
+@dataclass
+class Feature:
+    """One keypoint with its orientations and descriptors
+    (features.h:22-34)."""
+
+    x: float
+    y: float
+    sigma: float
+    octave: int
+    num_ori: int
+    orientations: np.ndarray   # [num_ori]
+    descriptors: np.ndarray    # [num_ori, 128]
+
+
+class FeaturesHost:
+    """Compacted host-side result (FeaturesHost, features.h:65-98):
+    keypoints with at least one orientation, their descriptors and the
+    descriptor -> keypoint map, as numpy arrays."""
+
+    def __init__(self, raw: SiftFeatures):
+        r = {k: v.cpu().numpy() for k, v in raw._asdict().items()}
+        kp_rows = np.nonzero(r["valid"])[0]
+        kp_rows = kp_rows[r["num_ori"][kp_rows] > 0]
+        self.x = r["x"][kp_rows]
+        self.y = r["y"][kp_rows]
+        self.sigma = r["sigma"][kp_rows]
+        self.octave = r["octave"][kp_rows]
+        self.num_ori = r["num_ori"][kp_rows]
+        self.orientations = r["ori"][kp_rows]
+        self.ori_valid = r["ori_valid"][kp_rows]
+        d_rows = np.nonzero(r["desc_valid"])[0]
+        self.descriptors = r["desc"][d_rows]
+        remap = -np.ones(r["x"].shape[0], np.int64)
+        remap[kp_rows] = np.arange(len(kp_rows))
+        self.desc_to_kp = remap[r["desc_kp"][d_rows]]
+
+    def getFeatureCount(self) -> int:
+        return int(len(self.x))
+
+    def getDescriptorCount(self) -> int:
+        return int(self.descriptors.shape[0])
+
+    def features(self):
+        """Iterate compacted :class:`Feature` records, descriptors grouped
+        by keypoint in orientation order."""
+        by_kp = {}
+        for di, kp in enumerate(self.desc_to_kp):
+            by_kp.setdefault(int(kp), []).append(di)
+        for i in range(len(self.x)):
+            rows = by_kp.get(i, [])
+            n = len(rows)
+            yield Feature(
+                x=float(self.x[i]), y=float(self.y[i]),
+                sigma=float(self.sigma[i]), octave=int(self.octave[i]),
+                num_ori=n,
+                orientations=self.orientations[i][self.ori_valid[i]][:n],
+                descriptors=self.descriptors[rows] if n else
+                np.zeros((0, 128), np.float32))
+
+    def save(self, path: str, write_as_uchar: bool = False):
+        """Write the reference text format (features.cu:308-328), one line
+        per descriptor, with the shared native writer."""
+        from popsift_tpu.runtime import native
+        order = np.lexsort((np.arange(len(self.desc_to_kp)),
+                            self.desc_to_kp))
+        kp = self.desc_to_kp[order]
+        native.write_features(
+            path, self.x[kp], self.y[kp], self.sigma[kp],
+            self.descriptors[order], write_as_uchar=write_as_uchar)
+
+
+class FeaturesDev:
+    """Device-resident result (FeaturesDev, features.h:100-118): keeps the
+    raw capacity-padded tensors."""
+
+    def __init__(self, raw: SiftFeatures):
+        self.raw = raw
+
+    @property
+    def descriptors(self) -> torch.Tensor:
+        return self.raw.desc
+
+    @property
+    def desc_valid(self) -> torch.Tensor:
+        return self.raw.desc_valid
+
+    def getFeatureCount(self) -> int:
+        return int(self.raw.n_keypoints)
+
+    def getDescriptorCount(self) -> int:
+        return int(self.raw.n_descriptors)
+
+
+class SiftJob:
+    """Extraction handle (SiftJob, popsift.h:40-71): ``get`` returns
+    FeaturesHost in extracting mode and FeaturesDev in matching mode."""
+
+    def __init__(self, raw: SiftFeatures, plan: ExtractPlan,
+                 mode: str = "extracting"):
+        self._raw = raw
+        self._plan = plan
+        self._mode = mode
+        self._host = None
+        self._warned = False
+
+    def _check_saturation(self):
+        """Warn once when an octave saturated its capacity or dropped
+        candidates in the compaction."""
+        if self._warned:
+            return
+        self._warned = True
+        for msg in saturation_report(self._raw, self._plan):
+            warnings.warn(msg, RuntimeWarning, stacklevel=3)
+
+    @property
+    def raw(self) -> SiftFeatures:
+        """The capacity-padded result tensors, on the run's device."""
+        return self._raw
+
+    def get(self):
+        if self._mode == "matching":
+            return self.getDev()
+        return self.getHost()
+
+    def getHost(self) -> FeaturesHost:
+        if self._host is None:
+            self._check_saturation()
+            self._host = FeaturesHost(self._raw)
+        return self._host
+
+    def getDev(self) -> FeaturesDev:
+        self._check_saturation()
+        return FeaturesDev(self._raw)
+
+
+class PopSift:
+    """Extraction pipeline owner (PopSift, popsift.h:73-167) on one
+    device. mode: "extracting" returns host features from jobs,
+    "matching" keeps them on the device (ProcessingMode,
+    sift_conf.h:87-90). ``device`` is "cuda" (the default), "cuda:N" or
+    "cpu"; a CUDA device on a machine without one raises here."""
+
+    def __init__(self, config: SiftConfig | None = None,
+                 mode: str = "extracting", device="cuda"):
+        if mode not in ("extracting", "matching"):
+            raise ValueError(f"bad mode {mode!r}")
+        self._config = config or SiftConfig()
+        self._mode = mode
+        self.device = resolve_device(device)
+        self._plans: dict = {}
+        self._lock = threading.Lock()
+
+    def configure(self, config: SiftConfig, force: bool = False) -> bool:
+        """Adopt a new configuration; drops the plans if it changed
+        (PopSift::configure, popsift.cpp:63-87)."""
+        if not force and config == self._config:
+            return True
+        with self._lock:
+            self._config = config
+            self._plans.clear()
+        return True
+
+    def _plan_for(self, h: int, w: int) -> ExtractPlan:
+        key = (h, w, self._config)
+        with self._lock:
+            if key not in self._plans:
+                self._plans[key] = build_extract_plan(self._config, h, w)
+            return self._plans[key]
+
+    def enqueue(self, image) -> SiftJob:
+        """Submit a grayscale image: uint8 [H, W] or float32 [H, W] in
+        [0, 1] (ImageFloat mode, s_image.cu:264-293)."""
+        image = np.asarray(image)
+        if image.ndim != 2:
+            raise ValueError("enqueue expects [H, W]")
+        if image.dtype not in (np.uint8, np.float32):
+            raise TypeError("enqueue expects a uint8 or float32 grayscale "
+                            "image")
+        plan = self._plan_for(*image.shape)
+        return SiftJob(extract(image, plan, self.device), plan,
+                       mode=self._mode)
+
+    def uninit(self):
+        with self._lock:
+            self._plans.clear()

@@ -1,0 +1,222 @@
+"""DoG extrema detection and sub-pixel refinement in PyTorch.
+
+Port of :mod:`popsift_tpu.ops.extrema` (default, dense-stack path):
+
+* the candidate mask runs as kernel K1 (ops/kernels/extrema_mask.py);
+* the compaction keeps ``_compact_mask``'s exact semantics -- ascending
+  flat order, the per-128-block cap ``K``, truncation at the capacity,
+  ``n_found`` and both ways of counting ``n_dropped`` -- with
+  ``nonzero``/``cumsum``/``searchsorted`` in place of the TPU's sort
+  trick;
+* the 5-step refinement runs as kernel K2 (ops/kernels/refine.py) on the
+  dense DoG stack, one thread per candidate;
+* the accept tests (:func:`finalize_refined`) run once over all octaves.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import SiftConfig
+from ..utils.f32 import div
+from .kernels.extrema_mask import candidate_mask, candidate_mask_torch
+from .kernels.refine import refine_state, refine_state_torch
+
+_B = 128   # compaction block width (the TPU lane count)
+
+
+class OctaveExtrema(NamedTuple):
+    """Capacity-padded refined extrema (octave coordinates)."""
+
+    x: torch.Tensor        # f32[K] refined x
+    y: torch.Tensor        # f32[K]
+    s: torch.Tensor        # f32[K] continuous level
+    level: torch.Tensor    # i64[K] round(s)
+    sigma: torch.Tensor    # f32[K] octave-relative scale
+    cell: torch.Tensor     # i64[K] grid-filter cell id
+    valid: torch.Tensor    # bool[K]
+    count: torch.Tensor    # i64[] number of valid entries
+    n_candidates: torch.Tensor  # i64[] pre-refinement candidates
+    n_dropped: torch.Tensor     # i64[] dropped by the block density clamp
+
+
+class CandidateSet(NamedTuple):
+    """Compacted candidates of one octave (no patches: K2 reads the DoG
+    stack itself)."""
+
+    x0: torch.Tensor       # i64[K] column
+    y0: torch.Tensor       # i64[K] row
+    z0: torch.Tensor       # i64[K] DoG layer
+    valid: torch.Tensor    # bool[K]
+    n_found: torch.Tensor  # i64[]
+    n_dropped: torch.Tensor  # i64[]
+
+
+def _first_threshold(cfg: SiftConfig) -> float:
+    """First-contrast gate: popsift 1.6*thr (s_extrema.cu:253-256),
+    vlfeat 0.8*2*thr == 1.6*thr (:201-204), opencv floor(thr)."""
+    thr = cfg.peak_threshold
+    if cfg.sift_mode in ("popsift", "vlfeat"):
+        return 1.6 * thr
+    return float(np.floor(thr))
+
+
+def _candidate_mask(dog: torch.Tensor, cfg: SiftConfig,
+                    plain: bool = False) -> torch.Tensor:
+    """bool[Z, H, W] mask of layers z = 1 .. total_levels-3 passing the
+    contrast gate and the strict 26-neighbour test (kernel K1, or its
+    plain version with ``plain``), with opencv's 5-pixel border rejection
+    (s_extrema.cu:336-340)."""
+    Z = cfg.total_levels - 3
+    _, H, W = dog.shape
+    thr1 = float(np.float32(_first_threshold(cfg)))
+    fn = candidate_mask_torch if plain else candidate_mask
+    mask = fn(dog[:Z + 2].contiguous(), thr1).bool()
+    if cfg.sift_mode == "opencv":
+        ys = torch.arange(H, device=dog.device)
+        xs = torch.arange(W, device=dog.device)
+        border = ((xs < 5) | (xs >= W - 5))[None, None, :] \
+            | ((ys < 5) | (ys >= H - 5))[None, :, None]
+        mask = mask & ~border
+    return mask
+
+
+def _rank_rows(m: torch.Tensor, K: int):
+    """Per-row compaction of a bool[nb, B] mask: (pos i64[nb, K] lane of
+    the j-th set bit, 0 past the row's count; full_cnt i64[nb])."""
+    nb = m.shape[0]
+    full_cnt = m.sum(1)
+    r, c = m.nonzero(as_tuple=True)          # row-major, ascending
+    start = torch.cumsum(full_cnt, 0) - full_cnt
+    rank = torch.arange(r.numel(), device=m.device) - start[r]
+    keep = rank < K
+    pos = torch.zeros((nb, K), dtype=torch.long, device=m.device)
+    pos[r[keep], rank[keep]] = c[keep]
+    return pos, full_cnt
+
+
+def _compact_mask(flat: torch.Tensor, capacity: int, block_k: int = 0):
+    """Compact a sparse bool mask into ``capacity`` flat indices in
+    ascending order, with the per-128-block density clamp of
+    popsift_tpu.ops.extrema._compact_mask (:195-282), entry for entry --
+    the padding entries past the count included. Returns
+    (idx i64[capacity], n_found i64[], n_dropped i64[])."""
+    N = flat.numel()
+    if block_k > 0:
+        K = min(block_k, _B - 1)
+    else:
+        K = int(np.clip(4 * capacity * _B // max(N, 1) + 1, 16, _B - 1))
+    nb = -(-N // _B)
+    dev = flat.device
+    m = torch.zeros(nb * _B, dtype=torch.bool, device=dev)
+    m[:N] = flat
+    m = m.view(nb, _B)
+
+    if nb <= max(2 * capacity, 512):
+        # small masks: every block is a row (:242-248)
+        pos, full_cnt = _rank_rows(m, K)
+        cnt = full_cnt.clamp(max=K)
+        dropped = (full_cnt - cnt).sum()
+        bids = torch.arange(nb, device=dev)
+        nsel = nb
+    else:
+        # large masks: rows of the first <= capacity non-empty blocks
+        # (:249-267); their ids come from the same compaction one level up
+        blk_cnt = m.sum(1)
+        total_bits = blk_cnt.sum()
+        nonempty = blk_cnt > 0
+        bids, _, _ = _compact_mask(nonempty, capacity, block_k=127)
+        nsel = capacity
+        live = torch.arange(capacity, device=dev) < nonempty.sum()
+        pos, full_cnt = _rank_rows(m[bids] & live[:, None], K)
+        cnt = full_cnt.clamp(max=K)
+        dropped = total_bits - cnt.sum()
+
+    off = torch.cumsum(cnt, 0) - cnt                # exclusive offsets
+    total = torch.clamp(off[-1] + cnt[-1], max=capacity)
+    s = torch.arange(capacity, device=dev)
+    b = (torch.searchsorted(off, s, right=True) - 1).clamp(0, nsel - 1)
+    j = (s - off[b]).clamp(0, K - 1)
+    return bids[b] * _B + pos[b, j], total, dropped
+
+
+def collect_candidates(dog: torch.Tensor, cfg: SiftConfig,
+                       capacity: int, plain: bool = False) -> CandidateSet:
+    """Mask (K1) + compaction for one octave's f32[D, H, W] DoG stack."""
+    _, H, W = dog.shape
+    mask = _candidate_mask(dog, cfg, plain)
+    idx, n_found, n_dropped = _compact_mask(
+        mask.reshape(-1), capacity, block_k=cfg.compact_block_k)
+    valid = torch.arange(capacity, device=dog.device) < n_found
+    return CandidateSet(x0=idx % W, y0=(idx % (H * W)) // W,
+                        z0=idx // (H * W) + 1, valid=valid,
+                        n_found=n_found, n_dropped=n_dropped)
+
+
+def refine_candidates(dog: torch.Tensor, cand: CandidateSet,
+                      cfg: SiftConfig, plain: bool = False) -> torch.Tensor:
+    """f32[K, 16] refinement state of one octave's candidates (kernel
+    K2, or its plain version with ``plain``), rows past ``n_found``
+    zero."""
+    fn = refine_state_torch if plain else refine_state
+    return fn(dog, cand.x0, cand.y0, cand.z0, int(cand.n_found),
+                        maxlevel=cfg.total_levels - 1,
+                        vlfeat=cfg.sift_mode == "vlfeat")
+
+
+def finalize_refined(state: torch.Tensor, cand_valid: torch.Tensor,
+                     cfg: SiftConfig, oct_w, oct_h, n_candidates,
+                     n_dropped) -> OctaveExtrema:
+    """Accept tests over refined candidates (s_extrema.cu:455-493), port
+    of popsift_tpu.ops.extrema.finalize_refined (:542-601): excessive
+    movement, bounds, contrast, curvature sign and edge ratio, plus sigma
+    and grid cell. ``oct_w``/``oct_h`` are ints or per-row tensors."""
+    (nx, nyv, nzv, dx, dy, dz, v,
+     Dx, Dy, Ds, DDx, DDy, DXy) = (state[:, i] for i in range(13))
+    dev = state.device
+    Wf = torch.as_tensor(oct_w, device=dev).to(torch.float32)
+    Hf = torch.as_tensor(oct_h, device=dev).to(torch.float32)
+    maxlevel = cfg.total_levels - 1
+    thr = float(np.float32(cfg.peak_threshold))
+
+    ok = cand_valid & ~((dx >= 1.5) | (dy >= 1.5) | (dz >= 1.5))
+    xn = nx + dx
+    yn = nyv + dy
+    sn = nzv + dz
+    ok = ok & (xn >= 0.0) & (xn <= Wf - 1.0) & (yn >= 0.0) \
+        & (yn <= Hf - 1.0) & (sn >= 0.0) & (sn <= maxlevel)
+
+    contr = v + 0.5 * (Dx * dx + Dy * dy + Ds * dz)
+    tr = DDx + DDy
+    det = DDx * DDy - DXy * DXy
+    e = np.float32(cfg.edge_limit)
+    edge_lim = float((e + np.float32(1.0)) * (e + np.float32(1.0)) / e)
+    ok = ok & (det > 0.0)
+    ok = ok & (contr.abs() >= 2.0 * thr)
+    ok = ok & (tr * tr / torch.where(det > 0, det, torch.ones_like(det))
+               < edge_lim)
+
+    sigma = float(np.float32(cfg.sigma)) \
+        * torch.exp2(div(sn, float(np.float32(cfg.levels))))
+    g = cfg.filter_grid_size
+    w_div = div(Wf, float(np.float32(g)))
+    h_div = div(Hf, float(np.float32(g)))
+    cell = (torch.floor(yn / h_div) * g + torch.floor(xn / w_div)).long()
+
+    zf = torch.zeros_like(xn)
+    zi = torch.zeros_like(cell)
+    return OctaveExtrema(
+        x=torch.where(ok, xn, zf),
+        y=torch.where(ok, yn, zf),
+        s=torch.where(ok, sn, zf),
+        level=torch.where(ok, torch.round(sn).long(), zi),
+        sigma=torch.where(ok, sigma, zf),
+        cell=torch.where(ok, cell, zi),
+        valid=ok,
+        count=ok.sum(),
+        n_candidates=torch.as_tensor(n_candidates, device=dev),
+        n_dropped=torch.as_tensor(n_dropped, device=dev),
+    )

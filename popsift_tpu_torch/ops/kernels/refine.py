@@ -1,0 +1,160 @@
+"""K2: 5-step sub-pixel refinement of DoG extremum candidates
+(csrc/refine.cu).
+
+Replaces popsift_tpu/ops/pallas/refine.py::refine_windows_pallas, and
+with it the window copy it fused (pallas/window.py): one thread per
+candidate reads its 27-neighbourhood straight from the dense DoG stack,
+as the reference refines in registers (s_extrema.cu:359-460).
+
+Output: f32[K, 16], columns (nx, ny, nz, dx, dy, dz, v, Dx, Dy, Ds, DDx,
+DDy, DXy, 0, 0, 0) -- the state popsift_tpu.ops.extrema.finalize_refined
+reads. Rows at or past ``n`` are zeros.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import build
+
+NAME = "refine"
+SOURCE = "popsift_tpu_torch/csrc/refine.cu"
+REPLACES = "popsift_tpu/ops/pallas/refine.py:350"
+MAX_ITERATIONS = 5    # s_extrema.cu:363
+NOUT = 16
+launches = 0
+
+
+def solve3(a00, a01, a02, a11, a12, a22, b0, b1, b2):
+    """Symmetric 3x3 solve via the adjugate (s_solve.h:24-85), in the op
+    order of popsift_tpu.ops.extrema._solve3. Returns (singular, x0, x1,
+    x2); singular rows get x == 0."""
+    det0 = a11 * a22 - a12 * a12
+    det1 = a12 * a02 - a01 * a22
+    det2 = a01 * a12 - a11 * a02
+    det3 = a00 * a22 - a02 * a02
+    det4 = a01 * a02 - a00 * a12
+    det5 = a00 * a11 - a01 * a01
+    det = a00 * det0 + a01 * det1 + a02 * det2
+    singular = det == 0.0
+    one = torch.ones_like(det)
+    rsd = torch.where(singular, one, 1.0 / torch.where(singular, one, det))
+    x0 = (det0 * b0 + det1 * b1 + det2 * b2) * rsd
+    x1 = (det1 * b0 + det3 * b1 + det4 * b2) * rsd
+    x2 = (det2 * b0 + det4 * b1 + det5 * b2) * rsd
+    z = torch.zeros_like(x0)
+    return (singular, torch.where(singular, z, x0),
+            torch.where(singular, z, x1), torch.where(singular, z, x2))
+
+
+def refine_state_torch(dog: torch.Tensor, x0: torch.Tensor,
+                       y0: torch.Tensor, z0: torch.Tensor, n: int, *,
+                       maxlevel: int, vlfeat: bool) -> torch.Tensor:
+    """Plain version: popsift_tpu.ops.extrema.refine_candidates (:604-731)
+    up to the 13-column state, on rows [0, n). Neighbour reads clamp z
+    to [0, D-1] as ``neighborhood`` does (:630); x and y are clamped to
+    the image, which is the JAX twin's edge-padded window (the step
+    policy keeps every read inside it anyway)."""
+    D, H, W = dog.shape
+    K = x0.shape[0]
+    out = torch.zeros((K, NOUT), dtype=torch.float32, device=dog.device)
+    if n == 0:
+        return out
+    flat = dog.reshape(-1)
+    nx = x0[:n].long()
+    ny = y0[:n].long()
+    nz = z0[:n].long()
+    zf = torch.zeros(n, dtype=torch.float32, device=dog.device)
+    v = dx = dy = dz = Dx = Dy = Ds = DDx = DDy = DXy = zf
+    done = torch.zeros(n, dtype=torch.bool, device=dog.device)
+    ar3 = torch.arange(3, device=dog.device) - 1
+
+    for it in range(1, MAX_ITERATIONS + 1):
+        act = ~done
+        zi = (nz[:, None] + ar3).clamp(0, D - 1)
+        yi = (ny[:, None] + ar3).clamp(0, H - 1)
+        xi = (nx[:, None] + ar3).clamp(0, W - 1)
+        idx = (zi[:, :, None, None] * H + yi[:, None, :, None]) * W \
+            + xi[:, None, None, :]
+        nb = flat[idx]                                   # [n, 3, 3, 3]
+        c = nb[:, 1, 1, 1]
+        if it == 1:
+            v = c              # contrast base, s_extrema.cu:357
+        p2, p0 = nb[:, 1, 1, 2], nb[:, 1, 1, 0]
+        q2, q0 = nb[:, 1, 2, 1], nb[:, 1, 0, 1]
+        r2, r0 = nb[:, 2, 1, 1], nb[:, 0, 1, 1]
+        nDx = 0.5 * (p2 - p0)
+        nDy = 0.5 * (q2 - q0)
+        nDs = 0.5 * (r2 - r0)
+        nDDx = p2 + p0 - 2.0 * c
+        nDDy = q2 + q0 - 2.0 * c
+        nDDs = r2 + r0 - 2.0 * c
+        nDXy = 0.25 * (nb[:, 1, 2, 2] + nb[:, 1, 0, 0]
+                       - nb[:, 1, 2, 0] - nb[:, 1, 0, 2])
+        nDXs = 0.25 * (nb[:, 2, 1, 2] + nb[:, 0, 1, 0]
+                       - nb[:, 2, 1, 0] - nb[:, 0, 1, 2])
+        nDYs = 0.25 * (nb[:, 2, 2, 1] + nb[:, 0, 0, 1]
+                       - nb[:, 0, 2, 1] - nb[:, 2, 0, 1])
+        sing, sx, sy, ss = solve3(nDDx, nDXy, nDXs, nDDy, nDYs, nDDs,
+                                  -nDx, -nDy, -nDs)
+        Dx = torch.where(act, nDx, Dx)
+        Dy = torch.where(act, nDy, Dy)
+        Ds = torch.where(act, nDs, Ds)
+        DDx = torch.where(act, nDDx, DDx)
+        DDy = torch.where(act, nDDy, DDy)
+        DXy = torch.where(act, nDXy, DXy)
+        dx = torch.where(act, sx, dx)
+        dy = torch.where(act, sy, dy)
+        dz = torch.where(act, ss, dz)
+        if it == MAX_ITERATIONS:
+            break
+        # step policy (popsift s_extrema.cu:258-284; vlfeat :207-232)
+        tx = ((sx >= 0.6) & (nx < W - 2)).long() \
+            - ((sx <= -0.6) & (nx > 1)).long()
+        ty = ((sy >= 0.6) & (ny < H - 2)).long() \
+            - ((sy <= -0.6) & (ny > 1)).long()
+        if vlfeat:
+            tz = torch.zeros_like(tx)
+        else:
+            tz = ((ss >= 0.6) & (nz < maxlevel - 1)).long() \
+                - ((ss <= -0.6) & (nz > 1)).long()
+        converged = (tx == 0) & (ty == 0) & (tz == 0)
+        move = act & ~sing & ~converged
+        nx = torch.where(move, nx + tx, nx)
+        ny = torch.where(move, ny + ty, ny)
+        nz = torch.where(move, nz + tz, nz)
+        done = done | (act & (sing | converged))
+
+    out[:n] = torch.stack([
+        nx.float(), ny.float(), nz.float(), dx, dy, dz, v,
+        Dx, Dy, Ds, DDx, DDy, DXy, zf, zf, zf], dim=1)
+    return out
+
+
+def refine_state(dog: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
+                 z0: torch.Tensor, n: int, *, maxlevel: int,
+                 vlfeat: bool) -> torch.Tensor:
+    """f32[K, 16] refinement state of candidates (x0, y0, z0) i32[K],
+    rows [0, n) live: plain version on the CPU, kernel K2 on CUDA."""
+    global launches
+    if dog.dim() != 3 or dog.dtype != torch.float32:
+        raise ValueError("refine_state expects a f32[D, H, W] DoG stack")
+    if dog.device.type == "cpu":
+        return refine_state_torch(dog, x0, y0, z0, n, maxlevel=maxlevel,
+                                  vlfeat=vlfeat)
+    x0, y0, z0 = (t.to(torch.int32).contiguous() for t in (x0, y0, z0))
+    build.require_cuda(NAME, dog, x0, y0, z0)
+    D, H, W = dog.shape
+    K = x0.shape[0]
+    if not 0 <= n <= K:
+        raise ValueError(f"refine_state: n={n} outside [0, {K}]")
+    out = torch.zeros((K, NOUT), dtype=torch.float32, device=dog.device)
+    if n == 0:
+        return out
+    lib = build.load_library()
+    rc = lib.ps_refine(dog.data_ptr(), x0.data_ptr(), y0.data_ptr(),
+                       z0.data_ptr(), n, D, H, W, maxlevel, int(vlfeat),
+                       out.data_ptr(), build.stream_of(dog))
+    build.check(rc, NAME)
+    launches += 1
+    return out

@@ -1,0 +1,227 @@
+"""Gaussian scale-space pyramid in PyTorch (default path).
+
+Port of :mod:`popsift_tpu.ops.pyramid`. Each octave is a dense
+``f32[L, H, W]`` stack of blur levels and an ``f32[L-1, H, W]`` stack of
+DoG layers, stored in 0..255 scale:
+
+* octave 0 level 0 comes straight from the input through the polyphase
+  form of (2x upsample -> dd[0] horizontal -> inc[0] vertical);
+* levels 1..L-1 by incremental separable blur with edge-replicated
+  borders;
+* octave o>0 level 0 picks every second pixel of level L-3 of the
+  previous octave;
+* DoG[l] = blur[l+1] - blur[l].
+
+The blurs are the JAX package's shift-and-add stencils with the same
+terms in the same order, in plain f32 tensor ops. Deliberately not
+``F.conv2d``: cuDNN runs f32 convolutions in TF32 by default, three
+decimal digits that the DoG threshold cannot afford (the JAX code
+avoided MXU convolutions for the same reason).
+
+The non-default strategies (direct scaling, fixed9/fixed15,
+vlfeat-relative-all, interpolated downscale) raise NotImplementedError;
+they are ROADMAP item A9.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..config import SiftConfig
+from ..utils.f32 import div
+from popsift_tpu.gauss import GaussTables, build_gauss_tables, full_kernel
+
+
+@dataclass(frozen=True)
+class PyramidPlan:
+    """Static shape/filter data for one (config, input size) pair."""
+
+    config: SiftConfig
+    in_h: int
+    in_w: int
+    dims: tuple            # ((h, w), ...) per octave
+    shift0: float          # sub-pixel shift for octave-0 sampling
+    inc_kernels: tuple     # full symmetric kernels per level
+    absN_kernels: tuple    # level0 -> levelN kernels (relative-all/fixed)
+    dd_kernels: tuple      # direct-downscale kernels per octave
+    lvl0_kernel_x: np.ndarray  # dd[0] full kernel (horizontal from input)
+    lvl0_kernel_y: np.ndarray  # inc[0] full kernel (vertical from interm)
+    abs0_kernels: tuple = ()   # input -> octave-0 levelN (fixed modes)
+
+
+def build_pyramid_plan(config: SiftConfig, height: int, width: int,
+                       tables: GaussTables | None = None) -> PyramidPlan:
+    """Same plan, tap for tap, as popsift_tpu.ops.pyramid.build_pyramid_plan
+    (both read the shared :mod:`popsift_tpu.gauss` tables)."""
+    if tables is None:
+        tables = build_gauss_tables(config)
+    if (config.sift_mode in ("popsift", "vlfeat")
+            or config.gauss_mode in ("fixed9", "fixed15")):
+        shift0 = 0.5 * (2.0 ** config.upscale_factor)
+    else:
+        shift0 = 0.5
+    n_oct = config.num_octaves_for(width, height)
+    return PyramidPlan(
+        config=config,
+        in_h=height,
+        in_w=width,
+        dims=tuple(config.octave_dims(width, height)),
+        shift0=shift0,
+        inc_kernels=tuple(
+            full_kernel(tables.inc[l], int(tables.inc_span[l]))
+            for l in range(config.total_levels)),
+        absN_kernels=tuple(
+            full_kernel(tables.abs_oN[l], int(tables.abs_oN_span[l]))
+            for l in range(config.total_levels)),
+        dd_kernels=tuple(
+            full_kernel(tables.dd[o], int(tables.dd_span[o]))
+            for o in range(n_oct)),
+        lvl0_kernel_x=full_kernel(tables.dd[0], int(tables.dd_span[0])),
+        lvl0_kernel_y=full_kernel(tables.inc[0], int(tables.inc_span[0])),
+        abs0_kernels=tuple(
+            full_kernel(tables.abs_o0[l], int(tables.abs_o0_span[l]))
+            for l in range(config.total_levels)),
+    )
+
+
+def _input_as_float(img: torch.Tensor) -> torch.Tensor:
+    """uint8 reads as val/255 (normalized texture); float32 input is
+    taken as-is in [0, 1]. The pyramid's *255 applies to both."""
+    if img.dtype == torch.uint8:
+        return div(img.to(torch.float32), 255.0)
+    return img.to(torch.float32)
+
+
+def _pad_edge(x: torch.Tensor, pad: int, dim: int) -> torch.Tensor:
+    """Edge-replicate ``pad`` cells on both sides of ``dim``."""
+    n = x.shape[dim]
+    idx = torch.arange(-pad, n + pad, device=x.device).clamp_(0, n - 1)
+    return x.index_select(dim, idx)
+
+
+def _conv1d_valid(x: torch.Tensor, kernel: np.ndarray, dim: int
+                  ) -> torch.Tensor:
+    """Valid-mode symmetric 1-D convolution along ``dim`` as the JAX
+    shift-and-add: centre tap, then paired taps outward."""
+    klen = kernel.shape[0]
+    span = (klen + 1) // 2
+    nout = x.shape[dim] - klen + 1
+    center = span - 1
+    out = x.narrow(dim, center, nout) * float(kernel[center])
+    for off in range(1, span):
+        out += ((x.narrow(dim, center - off, nout)
+                 + x.narrow(dim, center + off, nout))
+                * float(kernel[center + off]))
+    return out
+
+
+def _sep_blur(img: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
+    """Separable blur of [H, W] with edge-replicated borders."""
+    pad = (kernel.shape[0] - 1) // 2
+    x = _conv1d_valid(_pad_edge(img, pad, 1), kernel, 1)
+    return _conv1d_valid(_pad_edge(x, pad, 0), kernel, 0)
+
+
+def _phase_kernels(kernel: np.ndarray):
+    """Polyphase decomposition of (2x linear upsample -> conv ``kernel``):
+    out[2j + phi] = sum_d img[j + d] * K_phi[d]. Returns
+    ((K0, q0min), (K1, q1min)); numpy, identical to the JAX plan."""
+    S = (kernel.shape[0] - 1) // 2
+    out = []
+    for phi in (0, 1):
+        taps = {}
+        for u in range(kernel.shape[0]):
+            t = phi - S + u
+            if t % 2 == 0:
+                taps[t // 2] = taps.get(t // 2, 0.0) + float(kernel[u])
+            else:
+                lo = (t - 1) // 2
+                taps[lo] = taps.get(lo, 0.0) + 0.5 * float(kernel[u])
+                taps[lo + 1] = taps.get(lo + 1, 0.0) + 0.5 * float(kernel[u])
+        qmin, qmax = min(taps), max(taps)
+        arr = np.zeros(qmax - qmin + 1, np.float64)
+        for d, v in taps.items():
+            arr[d - qmin] = v
+        out.append((arr.astype(np.float32), qmin))
+    return tuple(out)
+
+
+def _conv1d_asym(x: torch.Tensor, taps: np.ndarray, qmin: int, pad: int,
+                 dim: int) -> torch.Tensor:
+    """Valid conv with an asymmetric kernel on an input already padded
+    by ``pad`` on both sides of ``dim``; terms summed in tap order."""
+    n = x.shape[dim] - 2 * pad
+    out = None
+    for i in range(taps.shape[0]):
+        term = x.narrow(dim, pad + qmin + i, n) * float(taps[i])
+        if out is None:
+            out = term
+        else:
+            out += term
+    return out
+
+
+def _octave0_level0(img: torch.Tensor, plan: PyramidPlan) -> torch.Tensor:
+    """Octave-0 level 0 from the input for the default 2x upscale: four
+    quarter-resolution phase planes convolved on the source image and
+    interleaved into [2H, 2W]."""
+    oh, ow = plan.dims[0]
+    if not (oh == 2 * plan.in_h and ow == 2 * plan.in_w
+            and plan.shift0 == 1.0):
+        raise NotImplementedError(
+            "octave-0 resampling other than the default 2x upscale "
+            "(ROADMAP A9)")
+    src = _input_as_float(img)
+    kxp = _phase_kernels(plan.lvl0_kernel_x * 255.0)
+    kyp = _phase_kernels(plan.lvl0_kernel_y)
+    px_pad = max(max(abs(q), abs(q + t.shape[0] - 1)) for t, q in kxp)
+    py_pad = max(max(abs(q), abs(q + t.shape[0] - 1)) for t, q in kyp)
+    srcp = _pad_edge(_pad_edge(src, py_pad, 0), px_pad, 1)
+    rows = []
+    for ky_t, ky_q in kyp:
+        row = []
+        for kx_t, kx_q in kxp:
+            p = _conv1d_asym(srcp, kx_t, kx_q, px_pad, 1)
+            row.append(_conv1d_asym(p, ky_t, ky_q, py_pad, 0))
+        rows.append(torch.stack(row, dim=-1))          # [H, W, px]
+    out = torch.stack(rows, dim=1)                     # [H, py, W, px]
+    return out.reshape(oh, ow)
+
+
+def _decimate2(x: torch.Tensor) -> torch.Tensor:
+    """Pick every second pixel (get_by_2_pick_every_second)."""
+    return x[0::2, 0::2]
+
+
+def build_pyramid(img: torch.Tensor, plan: PyramidPlan):
+    """Full pyramid of a [H, W] uint8 (or [0, 1] float32) image tensor.
+    Returns (blurs, dogs): tuples over octaves of f32[L, H, W] and
+    f32[L-1, H, W] on the image's device."""
+    cfg = plan.config
+    if cfg.scaling_mode == "direct":
+        raise NotImplementedError("direct scaling (ROADMAP A9)")
+    if cfg.gauss_mode in ("fixed9", "fixed15", "vlfeat-relative-all"):
+        raise NotImplementedError(
+            f"gauss mode {cfg.gauss_mode!r} (ROADMAP A9)")
+    if cfg.downscale_mode != "pick":
+        raise NotImplementedError(
+            f"downscale mode {cfg.downscale_mode!r} (ROADMAP A9)")
+    total = cfg.total_levels
+    blurs, dogs = [], []
+    prev = None
+    for octv, (oh, ow) in enumerate(plan.dims):
+        levels = torch.empty((total, oh, ow), dtype=torch.float32,
+                             device=img.device)
+        if octv == 0:
+            levels[0] = _octave0_level0(img, plan)
+        else:
+            levels[0] = _decimate2(prev)[:oh, :ow]
+        for lvl in range(1, total):
+            levels[lvl] = _sep_blur(levels[lvl - 1], plan.inc_kernels[lvl])
+        blurs.append(levels)
+        dogs.append(levels[1:] - levels[:-1])
+        prev = levels[total - 3]
+    return tuple(blurs), tuple(dogs)
