@@ -5,9 +5,11 @@ features.h:65-118) on a PyTorch device chosen explicitly. ``enqueue``
 runs the extraction (CUDA work is queued on the current stream; the
 launch-sizing counts are read back on the way) and returns a
 :class:`SiftJob`; ``get`` brings the result to the host.
+``enqueue_batch`` runs F same-sized frames as one batched extraction and
+returns one job per frame; ``calibrate`` pins per-octave capacities for
+later calls on that frame size.
 
-Not ported yet: ``FeaturesDev.match``, ``PopSift.enqueue_batch`` and
-``PopSift.calibrate`` (ROADMAP A10/A11).
+Not ported yet: ``FeaturesDev.match`` (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ import torch
 
 from .config import SiftConfig
 from .pipeline import (ExtractPlan, SiftFeatures, build_extract_plan,
-                       extract, saturation_report)
+                       calibrate_plan, extract, extract_batch,
+                       frame_features, saturation_report)
 from .utils.device import resolve_device
 
 
@@ -160,6 +163,14 @@ class SiftJob:
         return FeaturesDev(self._raw)
 
 
+def _check_image(image: np.ndarray, who: str) -> np.ndarray:
+    if image.ndim != 2:
+        raise ValueError(f"{who} expects [H, W] images")
+    if image.dtype not in (np.uint8, np.float32):
+        raise TypeError(f"{who} expects uint8 or float32 grayscale images")
+    return image
+
+
 class PopSift:
     """Extraction pipeline owner (PopSift, popsift.h:73-167) on one
     device. mode: "extracting" returns host features from jobs,
@@ -194,18 +205,43 @@ class PopSift:
                 self._plans[key] = build_extract_plan(self._config, h, w)
             return self._plans[key]
 
+    def calibrate(self, frames, headroom: float = 1.5) -> ExtractPlan:
+        """Pin per-octave capacities from representative frames
+        (:func:`popsift_tpu_torch.pipeline.calibrate_plan`, probed on this
+        PopSift's device); later ``enqueue``/``enqueue_batch`` calls on
+        the same frame size use the calibrated plan."""
+        frames = [np.asarray(f) for f in frames]
+        h, w = frames[0].shape[-2:]
+        plan = calibrate_plan(self._config, frames, h, w, headroom=headroom,
+                              device=self.device)
+        with self._lock:
+            self._plans[(h, w, self._config)] = plan
+        return plan
+
     def enqueue(self, image) -> SiftJob:
         """Submit a grayscale image: uint8 [H, W] or float32 [H, W] in
         [0, 1] (ImageFloat mode, s_image.cu:264-293)."""
-        image = np.asarray(image)
-        if image.ndim != 2:
-            raise ValueError("enqueue expects [H, W]")
-        if image.dtype not in (np.uint8, np.float32):
-            raise TypeError("enqueue expects a uint8 or float32 grayscale "
-                            "image")
+        image = _check_image(np.asarray(image), "enqueue")
         plan = self._plan_for(*image.shape)
         return SiftJob(extract(image, plan, self.device), plan,
                        mode=self._mode)
+
+    def enqueue_batch(self, images) -> list:
+        """Submit F same-sized grayscale frames as one batched extraction
+        (:func:`popsift_tpu_torch.pipeline.extract_batch`); returns one
+        SiftJob per frame, all sharing that run (popsift_tpu.api
+        .PopSift.enqueue_batch). Each frame's result equals its own
+        ``enqueue``."""
+        imgs = [_check_image(np.asarray(im), "enqueue_batch")
+                for im in images]
+        if not imgs or any(im.shape != imgs[0].shape
+                           or im.dtype != imgs[0].dtype for im in imgs):
+            raise ValueError("enqueue_batch expects F >= 1 frames of one "
+                             "shape and type")
+        plan = self._plan_for(*imgs[0].shape)
+        out = extract_batch(np.stack(imgs), plan, self.device)
+        return [SiftJob(frame_features(out, f), plan, mode=self._mode)
+                for f in range(len(imgs))]
 
     def uninit(self):
         with self._lock:

@@ -18,6 +18,12 @@
 //
 // Semantics: out[z-1, y, x] = |c| >= thr1 and (c > all 26 neighbours or
 // c < all 26 neighbours), c = dog[z, y, x].
+//
+// Frame-batched entry (replaces extrema_mask.py:candidate_mask_canvas_batched):
+// F frames' D-layer stacks lie back to back, f32[F*D, H, W]; grid z is the
+// frame, and a block's base pointers move to its frame's first layer and
+// first mask layer, so the ring and the clamped reads never leave the
+// frame's own D layers. Output u8[F, D-2, H, W], one launch per octave.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,6 +49,8 @@ extrema_mask_kernel(const float* __restrict__ dog, uint8_t* __restrict__ out,
     const int y = by + ty;
     const size_t plane = (size_t)H * (size_t)W;
     const int tid = ty * TX + tx;
+    dog += (size_t)blockIdx.z * (size_t)D * plane;
+    out += (size_t)blockIdx.z * (size_t)(D - 2) * plane;
 
     auto load = [&](int layer) {
         float (*dst)[TX + 2] = tile[layer % 3];
@@ -90,11 +98,18 @@ extrema_mask_kernel(const float* __restrict__ dog, uint8_t* __restrict__ out,
 
 }  // namespace
 
-extern "C" int ps_extrema_mask(const float* dog, uint8_t* out, int D, int H,
-                               int W, float thr1, void* stream) {
+extern "C" int ps_extrema_mask_batched(const float* dog, uint8_t* out, int F,
+                                       int D, int H, int W, float thr1,
+                                       void* stream) {
+    if (F < 1 || F > 65535) return (int)cudaErrorInvalidValue;
     const dim3 block(TX, TY);
-    const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY);
+    const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, F);
     extrema_mask_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
         dog, out, D, H, W, thr1);
     return (int)cudaGetLastError();
+}
+
+extern "C" int ps_extrema_mask(const float* dog, uint8_t* out, int D, int H,
+                               int W, float thr1, void* stream) {
+    return ps_extrema_mask_batched(dog, out, 1, D, H, W, thr1, stream);
 }

@@ -23,6 +23,15 @@
 // to [0, D-1] as `neighborhood` does (:630); x/y reads are clamped to the
 // image, the JAX twin's edge-padded window (never binding: the step policy
 // keeps every read inside the image).
+//
+// Frame-batched entry (replaces refine.py:refine_windows_pallas_batched):
+// F frames' D-layer stacks lie back to back, f32[F*D, H, W], and the
+// candidates are F*cap rows, frame-major. Row k belongs to frame
+// f = k / cap and is live below that frame's n_found[f], read from a device
+// array (no host read-back). The thread's volume starts at layer f*D, so
+// the z clamp stays [f*D, f*D + D-1]: a candidate on a frame's top layer
+// never reads the next frame. nz is written frame-local, as the JAX twin's
+// per-job layer base (zbase) leaves it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,18 +45,12 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
     return v < lo ? lo : (v > hi ? hi : v);
 }
 
-__global__ void refine_kernel(const float* __restrict__ dog,
-                              const int* __restrict__ x0,
-                              const int* __restrict__ y0,
-                              const int* __restrict__ z0, int n, int D, int H,
-                              int W, int maxlevel, int vlfeat,
-                              float* __restrict__ out) {
-    const int k = blockIdx.x * blockDim.x + threadIdx.x;
-    if (k >= n) return;
+// Refines one candidate starting at (nx, ny, nz) of the stack `dog`
+// f32[D, H, W]; writes the NOUT-column state to o.
+__device__ void refine_one(const float* __restrict__ dog, int nx, int ny,
+                           int nz, int D, int H, int W, int maxlevel,
+                           int vlfeat, float* __restrict__ o) {
     const size_t plane = (size_t)H * (size_t)W;
-    int nx = x0[k];
-    int ny = y0[k];
-    int nz = z0[k];
     float v = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
     float Dx = 0.f, Dy = 0.f, Ds = 0.f, DDx = 0.f, DDy = 0.f, DXy = 0.f;
 
@@ -130,7 +133,6 @@ __global__ void refine_kernel(const float* __restrict__ dog,
         nz += tz;
     }
 
-    float* o = out + (size_t)k * NOUT;
     o[0] = (float)nx;
     o[1] = (float)ny;
     o[2] = (float)nz;
@@ -149,6 +151,35 @@ __global__ void refine_kernel(const float* __restrict__ dog,
     o[15] = 0.f;
 }
 
+__global__ void refine_kernel(const float* __restrict__ dog,
+                              const int* __restrict__ x0,
+                              const int* __restrict__ y0,
+                              const int* __restrict__ z0, int n, int D, int H,
+                              int W, int maxlevel, int vlfeat,
+                              float* __restrict__ out) {
+    const int k = blockIdx.x * blockDim.x + threadIdx.x;
+    if (k >= n) return;
+    refine_one(dog, x0[k], y0[k], z0[k], D, H, W, maxlevel, vlfeat,
+               out + (size_t)k * NOUT);
+}
+
+__global__ void refine_kernel_batched(const float* __restrict__ dog,
+                                      const int* __restrict__ x0,
+                                      const int* __restrict__ y0,
+                                      const int* __restrict__ z0,
+                                      const int* __restrict__ n_found, int F,
+                                      int cap, int D, int H, int W,
+                                      int maxlevel, int vlfeat,
+                                      float* __restrict__ out) {
+    const int k = blockIdx.x * blockDim.x + threadIdx.x;
+    if (k >= F * cap) return;
+    const int f = k / cap;
+    if (k - f * cap >= n_found[f]) return;    // rows past the count stay 0
+    const float* vol = dog + (size_t)f * (size_t)D * (size_t)H * (size_t)W;
+    refine_one(vol, x0[k], y0[k], z0[k], D, H, W, maxlevel, vlfeat,
+               out + (size_t)k * NOUT);
+}
+
 }  // namespace
 
 extern "C" int ps_refine(const float* dog, const int* x0, const int* y0,
@@ -158,5 +189,17 @@ extern "C" int ps_refine(const float* dog, const int* x0, const int* y0,
     const int blocks = (n + threads - 1) / threads;
     refine_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         dog, x0, y0, z0, n, D, H, W, maxlevel, vlfeat, out);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int ps_refine_batched(const float* dog, const int* x0,
+                                 const int* y0, const int* z0,
+                                 const int* n_found, int F, int cap, int D,
+                                 int H, int W, int maxlevel, int vlfeat,
+                                 float* out, void* stream) {
+    const int threads = 128;
+    const int blocks = (F * cap + threads - 1) / threads;
+    refine_kernel_batched<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        dog, x0, y0, z0, n_found, F, cap, D, H, W, maxlevel, vlfeat, out);
     return (int)cudaGetLastError();
 }

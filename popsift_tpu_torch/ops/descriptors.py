@@ -12,6 +12,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..config import DESC_MAGNIFY, ORIENTATION_MAX_COUNT, SiftConfig
@@ -30,7 +31,8 @@ class DescriptorJobs(NamedTuple):
 
 
 def make_descriptor_jobs_segmented(ext_x, ext_y, ext_sigma, ext_level,
-                                   ori, ori_valid, segments):
+                                   ori, ori_valid, segments,
+                                   level_offsets=None):
     """Front-packed job lists of many segments of the concatenated
     keypoint arrays, port of popsift_tpu.ops.descriptors
     .make_descriptor_jobs_segmented (:70-130).
@@ -38,13 +40,14 @@ def make_descriptor_jobs_segmented(ext_x, ext_y, ext_sigma, ext_level,
     ``segments``: ``((start, K, jcap), ...)``: rows [start, start+K)
     become ``jcap`` job rows, the set (keypoint, slot) pairs in ascending
     flat order first; padding rows point at (row 0, slot 0) of the
-    segment, as in JAX. Returns ``(jobs, counts)``; ``kp_index`` is local
-    to its segment and ``counts`` i64[S] holds each segment's valid
-    jobs."""
+    segment, as in JAX. ``level_offsets`` optionally adds a per-segment
+    offset to the gathered level (the batched path's ``frame * L`` layer
+    addressing). Returns ``(jobs, counts)``; ``kp_index`` is local to its
+    segment and ``counts`` i64[S] holds each segment's valid jobs."""
     O = ORIENTATION_MAX_COUNT
     dev = ext_x.device
-    kp_loc, kp_glob, slots, valids, counts = [], [], [], [], []
-    for (s, K, jcap) in segments:
+    kp_loc, kp_glob, slots, valids, counts, lev_off = [], [], [], [], [], []
+    for i, (s, K, jcap) in enumerate(segments):
         flat = ori_valid[s:s + K].reshape(-1)
         nz = flat.nonzero().squeeze(1)[:jcap]
         idx = torch.zeros(jcap, dtype=torch.long, device=dev)
@@ -56,13 +59,18 @@ def make_descriptor_jobs_segmented(ext_x, ext_y, ext_sigma, ext_level,
         n = torch.clamp(flat.sum(), max=jcap)
         counts.append(n)
         valids.append(torch.arange(jcap, device=dev) < n)
+        if level_offsets is not None:
+            lev_off.append(np.full(jcap, level_offsets[i], np.int64))
     kpl = torch.cat(kp_loc)
     kpg = torch.cat(kp_glob)
     slot = torch.cat(slots)
     counts = torch.stack(counts)
+    level = ext_level[kpg]
+    if level_offsets is not None:
+        level = level + torch.as_tensor(np.concatenate(lev_off), device=dev)
     jobs = DescriptorJobs(
         x=ext_x[kpg], y=ext_y[kpg], sigma=ext_sigma[kpg],
-        level=ext_level[kpg], ang=ori[kpg, slot], kp_index=kpl,
+        level=level, ang=ori[kpg, slot], kp_index=kpl,
         valid=torch.cat(valids), count=counts.sum())
     return jobs, counts
 

@@ -1,20 +1,33 @@
 """Wrappers of the hand-written CUDA kernels (sources in ``csrc/``).
 
-Each module holds one kernel's wrapper, its plain PyTorch version and a
-``launches`` counter. A wrapper given CPU tensors runs the plain version;
-given CUDA tensors it launches the kernel (adding one to ``launches``)
-or raises. There is no other switch between the two.
+Each module holds one kernel's wrappers, their plain PyTorch versions
+and a ``launches`` counter per entry (a frame-batched entry counts on
+its own, ``launches_batched``). A wrapper given CPU tensors runs the
+plain version; given CUDA tensors it launches the kernel (adding one to
+its counter) or raises. There is no other switch between the two.
 """
 
-from . import desc, extrema_mask, orient, refine
+from . import blur_dog, desc, extrema_mask, orient, refine
 
-KERNELS = (extrema_mask, refine, orient, desc)
+# entry name -> (module, counter attribute, file:line of the TPU kernel)
+ENTRIES = {
+    blur_dog.NAME: (blur_dog, "launches", blur_dog.REPLACES),
+    extrema_mask.NAME: (extrema_mask, "launches", extrema_mask.REPLACES),
+    refine.NAME: (refine, "launches", refine.REPLACES),
+    orient.NAME: (orient, "launches", orient.REPLACES),
+    desc.NAME: (desc, "launches", desc.REPLACES),
+    extrema_mask.NAME_BATCHED: (extrema_mask, "launches_batched",
+                                extrema_mask.REPLACES_BATCHED),
+    refine.NAME_BATCHED: (refine, "launches_batched",
+                          refine.REPLACES_BATCHED),
+}
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNELS:
-        mod.launches = 0
+    for mod, attr, _ in ENTRIES.values():
+        setattr(mod, attr, 0)
 
 
 def launch_counts() -> dict:
-    return {mod.NAME: mod.launches for mod in KERNELS}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr, _) in ENTRIES.items()}

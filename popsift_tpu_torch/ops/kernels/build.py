@@ -40,12 +40,22 @@ _lib = None
 build_seconds = None   # wall time of the nvcc run of this process, if any
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
 # C signatures (see the extern "C" functions in csrc/*.cu)
 _SIGNATURES = {
+    # src, src_stride, blur, blur_stride, dog, dog_stride, N, H, W, taps,
+    # S, stream
+    "ps_blur_dog": (_VP, _LL, _VP, _LL, _VP, _LL, _I, _I, _I, _VP, _I, _VP),
     # dog, out, D, H, W, thr1, stream
     "ps_extrema_mask": (_VP, _VP, _I, _I, _I, _F, _VP),
+    # dog, out, F, D, H, W, thr1, stream
+    "ps_extrema_mask_batched": (_VP, _VP, _I, _I, _I, _I, _F, _VP),
     # dog, x0, y0, z0, n, D, H, W, maxlevel, vlfeat, out, stream
     "ps_refine": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP, _VP),
+    # dog, x0, y0, z0, n_found, F, cap, D, H, W, maxlevel, vlfeat, out,
+    # stream
+    "ps_refine_batched": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                          _I, _VP, _VP),
     # blur, L, H, W, x, y, sigma, level, valid, n, out, stream
     "ps_orientation_hist": (_VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _I,
                             _VP, _VP),

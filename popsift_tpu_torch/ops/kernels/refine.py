@@ -9,6 +9,11 @@ as the reference refines in registers (s_extrema.cu:359-460).
 Output: f32[K, 16], columns (nx, ny, nz, dx, dy, dz, v, Dx, Dy, Ds, DDx,
 DDy, DXy, 0, 0, 0) -- the state popsift_tpu.ops.extrema.finalize_refined
 reads. Rows at or past ``n`` are zeros.
+
+The frame-batched entry (:func:`refine_state_batched`, replacing
+``refine_windows_pallas_batched``) refines F frames' candidates, F*cap
+rows frame-major, against their stacks laid back to back, in one launch
+with its own launch counter; each row reads only its own frame's layers.
 """
 
 from __future__ import annotations
@@ -20,9 +25,12 @@ from . import build
 NAME = "refine"
 SOURCE = "popsift_tpu_torch/csrc/refine.cu"
 REPLACES = "popsift_tpu/ops/pallas/refine.py:350"
+NAME_BATCHED = "refine_batched"
+REPLACES_BATCHED = "popsift_tpu/ops/pallas/refine.py:380"
 MAX_ITERATIONS = 5    # s_extrema.cu:363
 NOUT = 16
 launches = 0
+launches_batched = 0
 
 
 def solve3(a00, a01, a02, a11, a12, a22, b0, b1, b2):
@@ -157,4 +165,59 @@ def refine_state(dog: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
                        out.data_ptr(), build.stream_of(dog))
     build.check(rc, NAME)
     launches += 1
+    return out
+
+
+def refine_state_batched_torch(dog: torch.Tensor, x0: torch.Tensor,
+                               y0: torch.Tensor, z0: torch.Tensor,
+                               n_found: torch.Tensor, F: int, *,
+                               maxlevel: int, vlfeat: bool) -> torch.Tensor:
+    """Plain version of the batched entry: :func:`refine_state_torch` on
+    each frame's own D layers, rows [f*cap, f*cap + n_found[f]) live."""
+    D = dog.shape[0] // F
+    cap = x0.shape[0] // F
+    nf = n_found.tolist()
+    return torch.cat([
+        refine_state_torch(dog[f * D:(f + 1) * D],
+                           x0[f * cap:(f + 1) * cap],
+                           y0[f * cap:(f + 1) * cap],
+                           z0[f * cap:(f + 1) * cap], int(nf[f]),
+                           maxlevel=maxlevel, vlfeat=vlfeat)
+        for f in range(F)])
+
+
+def refine_state_batched(dog: torch.Tensor, x0: torch.Tensor,
+                         y0: torch.Tensor, z0: torch.Tensor,
+                         n_found: torch.Tensor, F: int, *, maxlevel: int,
+                         vlfeat: bool) -> torch.Tensor:
+    """f32[F*cap, 16] refinement state of F frames' candidates, i32
+    [F*cap] frame-major with frame-local z, against their DoG stacks
+    stacked on the layer axis, f32[F*D, H, W]; frame f's rows below
+    ``n_found[f]`` (a [F] tensor on the stack's device) are live. Plain
+    version on the CPU, one launch of kernel K2 on a CUDA device."""
+    global launches_batched
+    if (dog.dim() != 3 or dog.dtype != torch.float32 or F < 1
+            or dog.shape[0] % F or x0.shape[0] % F
+            or n_found.shape != (F,)):
+        raise ValueError("refine_state_batched expects f32[F*D, H, W], "
+                         "F*cap candidates and n_found[F]")
+    if dog.device.type == "cpu":
+        return refine_state_batched_torch(dog, x0, y0, z0, n_found, F,
+                                          maxlevel=maxlevel, vlfeat=vlfeat)
+    x0, y0, z0, n_found = (t.to(torch.int32).contiguous()
+                           for t in (x0, y0, z0, n_found))
+    build.require_cuda(NAME_BATCHED, dog, x0, y0, z0, n_found)
+    FD, H, W = dog.shape
+    cap = x0.shape[0] // F
+    out = torch.zeros((F * cap, NOUT), dtype=torch.float32,
+                      device=dog.device)
+    if cap == 0:
+        return out
+    lib = build.load_library()
+    rc = lib.ps_refine_batched(
+        dog.data_ptr(), x0.data_ptr(), y0.data_ptr(), z0.data_ptr(),
+        n_found.data_ptr(), F, cap, FD // F, H, W, maxlevel, int(vlfeat),
+        out.data_ptr(), build.stream_of(dog))
+    build.check(rc, NAME_BATCHED)
+    launches_batched += 1
     return out

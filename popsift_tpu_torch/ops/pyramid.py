@@ -7,16 +7,22 @@ DoG layers, stored in 0..255 scale:
 * octave 0 level 0 comes straight from the input through the polyphase
   form of (2x upsample -> dd[0] horizontal -> inc[0] vertical);
 * levels 1..L-1 by incremental separable blur with edge-replicated
-  borders;
+  borders, each with its DoG, DoG[l-1] = blur[l] - blur[l-1], in one
+  call of kernel K5 (ops/kernels/blur_dog.py) per level for all frames;
 * octave o>0 level 0 picks every second pixel of level L-3 of the
-  previous octave;
-* DoG[l] = blur[l+1] - blur[l].
+  previous octave.
 
 The blurs are the JAX package's shift-and-add stencils with the same
-terms in the same order, in plain f32 tensor ops. Deliberately not
+terms in the same order: in K5, or in its plain version (plain f32
+tensor ops) on the CPU and with ``plain=True``. Deliberately not
 ``F.conv2d``: cuDNN runs f32 convolutions in TF32 by default, three
 decimal digits that the DoG threshold cannot afford (the JAX code
-avoided MXU convolutions for the same reason).
+avoided MXU convolutions for the same reason). Level 0 (the polyphase
+upscale, the decimation) is plain torch, as it was XLA in JAX.
+
+:func:`build_pyramid_frames` builds F same-sized frames at once, each
+octave as f32[F, L, H, W] and f32[F, L-1, H, W]; :func:`build_pyramid`
+is its one-frame form.
 
 The non-default strategies (direct scaling, fixed9/fixed15,
 vlfeat-relative-all, interpolated downscale) raise NotImplementedError;
@@ -32,6 +38,7 @@ import torch
 
 from ..config import SiftConfig
 from ..utils.f32 import div
+from .kernels.blur_dog import _pad_edge, blur_dog, blur_dog_torch
 from popsift_tpu.gauss import GaussTables, build_gauss_tables, full_kernel
 
 
@@ -93,36 +100,6 @@ def _input_as_float(img: torch.Tensor) -> torch.Tensor:
     if img.dtype == torch.uint8:
         return div(img.to(torch.float32), 255.0)
     return img.to(torch.float32)
-
-
-def _pad_edge(x: torch.Tensor, pad: int, dim: int) -> torch.Tensor:
-    """Edge-replicate ``pad`` cells on both sides of ``dim``."""
-    n = x.shape[dim]
-    idx = torch.arange(-pad, n + pad, device=x.device).clamp_(0, n - 1)
-    return x.index_select(dim, idx)
-
-
-def _conv1d_valid(x: torch.Tensor, kernel: np.ndarray, dim: int
-                  ) -> torch.Tensor:
-    """Valid-mode symmetric 1-D convolution along ``dim`` as the JAX
-    shift-and-add: centre tap, then paired taps outward."""
-    klen = kernel.shape[0]
-    span = (klen + 1) // 2
-    nout = x.shape[dim] - klen + 1
-    center = span - 1
-    out = x.narrow(dim, center, nout) * float(kernel[center])
-    for off in range(1, span):
-        out += ((x.narrow(dim, center - off, nout)
-                 + x.narrow(dim, center + off, nout))
-                * float(kernel[center + off]))
-    return out
-
-
-def _sep_blur(img: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
-    """Separable blur of [H, W] with edge-replicated borders."""
-    pad = (kernel.shape[0] - 1) // 2
-    x = _conv1d_valid(_pad_edge(img, pad, 1), kernel, 1)
-    return _conv1d_valid(_pad_edge(x, pad, 0), kernel, 0)
 
 
 def _phase_kernels(kernel: np.ndarray):
@@ -191,15 +168,13 @@ def _octave0_level0(img: torch.Tensor, plan: PyramidPlan) -> torch.Tensor:
     return out.reshape(oh, ow)
 
 
-def _decimate2(x: torch.Tensor) -> torch.Tensor:
-    """Pick every second pixel (get_by_2_pick_every_second)."""
-    return x[0::2, 0::2]
-
-
-def build_pyramid(img: torch.Tensor, plan: PyramidPlan):
-    """Full pyramid of a [H, W] uint8 (or [0, 1] float32) image tensor.
-    Returns (blurs, dogs): tuples over octaves of f32[L, H, W] and
-    f32[L-1, H, W] on the image's device."""
+def build_pyramid_frames(imgs: torch.Tensor, plan: PyramidPlan,
+                         plain: bool = False):
+    """Pyramids of F same-sized frames, ``imgs`` [F, H, W] uint8 (or
+    [0, 1] float32). Returns (blurs, dogs): tuples over octaves of
+    f32[F, L, H, W] and f32[F, L-1, H, W] on the images' device. Each
+    level runs K5 once for all F frames (its plain version with
+    ``plain``)."""
     cfg = plan.config
     if cfg.scaling_mode == "direct":
         raise NotImplementedError("direct scaling (ROADMAP A9)")
@@ -209,19 +184,35 @@ def build_pyramid(img: torch.Tensor, plan: PyramidPlan):
     if cfg.downscale_mode != "pick":
         raise NotImplementedError(
             f"downscale mode {cfg.downscale_mode!r} (ROADMAP A9)")
+    blur_level = blur_dog_torch if plain else blur_dog
+    F = imgs.shape[0]
     total = cfg.total_levels
     blurs, dogs = [], []
     prev = None
     for octv, (oh, ow) in enumerate(plan.dims):
-        levels = torch.empty((total, oh, ow), dtype=torch.float32,
-                             device=img.device)
+        levels = torch.empty((F, total, oh, ow), dtype=torch.float32,
+                             device=imgs.device)
+        dog = torch.empty((F, total - 1, oh, ow), dtype=torch.float32,
+                          device=imgs.device)
         if octv == 0:
-            levels[0] = _octave0_level0(img, plan)
+            for f in range(F):
+                levels[f, 0] = _octave0_level0(imgs[f], plan)
         else:
-            levels[0] = _decimate2(prev)[:oh, :ow]
+            # pick every second pixel (get_by_2_pick_every_second)
+            levels[:, 0] = prev[:, 0::2, 0::2][:, :oh, :ow]
         for lvl in range(1, total):
-            levels[lvl] = _sep_blur(levels[lvl - 1], plan.inc_kernels[lvl])
+            blur_level(levels[:, lvl - 1], plan.inc_kernels[lvl],
+                       out=(levels[:, lvl], dog[:, lvl - 1]))
         blurs.append(levels)
-        dogs.append(levels[1:] - levels[:-1])
-        prev = levels[total - 3]
+        dogs.append(dog)
+        prev = levels[:, total - 3]
     return tuple(blurs), tuple(dogs)
+
+
+def build_pyramid(img: torch.Tensor, plan: PyramidPlan,
+                  plain: bool = False):
+    """Full pyramid of a [H, W] uint8 (or [0, 1] float32) image tensor.
+    Returns (blurs, dogs): tuples over octaves of f32[L, H, W] and
+    f32[L-1, H, W] on the image's device."""
+    blurs, dogs = build_pyramid_frames(img[None], plan, plain)
+    return tuple(b[0] for b in blurs), tuple(d[0] for d in dogs)

@@ -10,6 +10,17 @@ and the output tail (octave scaling, descriptor -> keypoint map).
 
 Counts that size a kernel launch (candidates, jobs per octave) are read
 back to the host between stages; everything else stays on the device.
+
+:func:`extract_batch` is the frame-batched form (pipeline.py:409-753 on
+dense stacks): F frames' pyramids share one K5 launch per level, each
+octave's stacks hold the frames back to back on the layer axis
+([F*L, H, W] and [F*(L-1), H, W]), K1 and K2 run once per octave for all
+frames, and K3/K4 address frame f's level l as layer f*L + l. Every
+output gains a leading [F] axis. ``extract_batch`` of one frame equals
+``extract`` but runs more host glue (its live-row gathers and scatters),
+so the single-frame path keeps its own stages (PERF.md §6).
+:func:`calibrate_plan` sizes per-octave capacities from a detect-only
+probe (pipeline.py:787-831).
 """
 
 from __future__ import annotations
@@ -20,11 +31,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .config import SiftConfig
+from .config import ORI_NBINS, SiftConfig
 from .ops import descriptors as _desc
 from .ops import extrema as _ext
 from .ops import orientation as _ori
-from .ops.pyramid import PyramidPlan, build_pyramid, build_pyramid_plan
+from .ops.pyramid import (PyramidPlan, build_pyramid, build_pyramid_frames,
+                          build_pyramid_plan)
 from .utils.device import resolve_device
 
 
@@ -80,6 +92,13 @@ def build_extract_plan(config: SiftConfig, height: int, width: int,
                        job_caps=tuple(job_caps))
 
 
+def _check_supported(cfg: SiftConfig) -> None:
+    if cfg.filter_max_extrema > 0:
+        raise NotImplementedError("grid filter (ROADMAP A4)")
+    if cfg.desc_mode != "loop":
+        raise NotImplementedError(f"desc_mode {cfg.desc_mode!r} (ROADMAP A9)")
+
+
 def extract(img, plan: ExtractPlan, device, *,
             plain: bool = False) -> SiftFeatures:
     """Run the full pipeline on one [H, W] uint8 (or [0, 1] float32)
@@ -90,10 +109,7 @@ def extract(img, plan: ExtractPlan, device, *,
     the baseline the kernels are timed against. It is never chosen on
     its own."""
     cfg = plan.config
-    if cfg.filter_max_extrema > 0:
-        raise NotImplementedError("grid filter (ROADMAP A4)")
-    if cfg.desc_mode != "loop":
-        raise NotImplementedError(f"desc_mode {cfg.desc_mode!r} (ROADMAP A9)")
+    _check_supported(cfg)
     dev = resolve_device(device)
     img = torch.as_tensor(np.asarray(img)).to(dev)
     if tuple(img.shape) != (plan.height, plan.width):
@@ -103,7 +119,7 @@ def extract(img, plan: ExtractPlan, device, *,
     dims = plan.pyramid.dims
     offs = np.concatenate([[0], np.cumsum(caps)]).astype(int)
 
-    blurs, dogs = build_pyramid(img, plan.pyramid)
+    blurs, dogs = build_pyramid(img, plan.pyramid, plain)
 
     # detection: mask + compaction + refinement per octave, one batched
     # accept test over all octaves (each row carries its octave's dims)
@@ -184,6 +200,138 @@ def extract(img, plan: ExtractPlan, device, *,
     )
 
 
+def _live_rows(counts, cap: int, base: int = 0, stride: int = 0):
+    """Indices of the live rows of F segments, frame f's first
+    ``counts[f]`` rows starting at ``base + f * stride`` (``stride``
+    defaults to ``cap``)."""
+    stride = stride or cap
+    return np.concatenate([base + f * stride + np.arange(c)
+                           for f, c in enumerate(counts)]).astype(np.int64)
+
+
+def extract_batch(imgs, plan: ExtractPlan, device, *,
+                  plain: bool = False) -> SiftFeatures:
+    """Run the pipeline on F same-sized frames at once, ``imgs`` [F, H, W]
+    uint8 (or [0, 1] float32) as a numpy array or tensor, on ``device``.
+    Every output gains a leading [F] axis; frame f's row equals
+    ``extract`` of that frame. ``plain`` as in :func:`extract`."""
+    cfg = plan.config
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    imgs = torch.as_tensor(np.asarray(imgs)).to(dev)
+    if imgs.dim() != 3 or tuple(imgs.shape[1:]) != (plan.height, plan.width):
+        raise ValueError(f"frames {tuple(imgs.shape)} do not match the plan "
+                         f"(F, {plan.height}, {plan.width})")
+    F = imgs.shape[0]
+    L = cfg.total_levels
+    caps = plan.ext_caps
+    dims = plan.pyramid.dims
+    n_oct = len(caps)
+    offs = np.concatenate([[0], np.cumsum(caps)]).astype(int)
+    Ktot = int(offs[-1])
+
+    # frames stacked on the layer axis: [F, L, H, W] -> [F*L, H, W]
+    blurs, dogs = build_pyramid_frames(imgs, plan.pyramid, plain)
+    blurs = [b.view(F * L, *b.shape[2:]) for b in blurs]
+    dogs = [d.view(F * (L - 1), *d.shape[2:]) for d in dogs]
+
+    # detection: one mask + one refine launch per octave for all frames,
+    # one accept test over all frames and octaves
+    cands = [_ext.collect_refined_batched(dogs[o], F, cfg, caps[o], plain)
+             for o in range(n_oct)]
+    n_found = torch.stack([c.n_found for c in cands]).tolist()  # [o][f]
+    vals = torch.cat([c.vals.view(F, caps[o], -1)
+                      for o, c in enumerate(cands)], 1).reshape(F * Ktot, -1)
+    octv_row = np.concatenate(
+        [np.full(caps[o], o, np.int64) for o in range(n_oct)])
+    w_row = np.concatenate(
+        [np.full(caps[o], ow, np.int64) for o, (_, ow) in enumerate(dims)])
+    h_row = np.concatenate(
+        [np.full(caps[o], oh, np.int64) for o, (oh, _) in enumerate(dims)])
+    g = _ext.finalize_refined(
+        vals, torch.cat([c.valid for c in cands], 1).reshape(-1), cfg,
+        torch.as_tensor(np.tile(w_row, F), device=dev),
+        torch.as_tensor(np.tile(h_row, F), device=dev),
+        int(np.sum(n_found)), torch.stack([c.n_dropped for c in cands]).sum())
+
+    # orientation: per octave one K3 launch over all frames' live rows
+    # (gathered, so no launch covers the padding between frames), which
+    # address frame f's level l as layer f*L + l of the stacked blur
+    level_b = g.level + torch.arange(F, device=dev).repeat_interleave(Ktot) * L
+    hist = torch.zeros((F * Ktot, ORI_NBINS), dtype=torch.float32,
+                       device=dev)
+    for o in range(n_oct):
+        rows = torch.as_tensor(
+            _live_rows(n_found[o], caps[o], int(offs[o]), Ktot), device=dev)
+        ext_o = g._replace(
+            x=g.x[rows], y=g.y[rows], s=g.s[rows], level=level_b[rows],
+            sigma=g.sigma[rows], cell=g.cell[rows], valid=g.valid[rows])
+        hist[rows] = _ori.orientation_histograms(
+            blurs[o], ext_o, cfg, rows.numel(), plain)
+    oris = _ori.orientations_from_histograms(hist, g.valid,
+                                             smoothing=cfg.ori_smoothing)
+
+    # descriptors: one job build over all (octave, frame) segments, then
+    # per octave one K4 launch over all frames' live jobs
+    segs, lev_offs = [], []
+    for o in range(n_oct):
+        for f in range(F):
+            segs.append((f * Ktot + int(offs[o]), caps[o], plan.job_caps[o]))
+            lev_offs.append(f * L)
+    jobs_all, seg_counts = _desc.make_descriptor_jobs_segmented(
+        g.x, g.y, g.sigma, g.level, oris.ori, oris.ori_valid, tuple(segs),
+        level_offsets=tuple(lev_offs))
+    counts_host = seg_counts.view(n_oct, F).tolist()
+    jobs_off = np.concatenate([[0], np.cumsum(plan.job_caps)]).astype(int)
+    Jtot = int(jobs_off[-1])
+    raw, job_kps, job_valids = [], [], []
+    for o in range(n_oct):
+        jcap = plan.job_caps[o]
+        jsl = slice(int(jobs_off[o]) * F, int(jobs_off[o]) * F + F * jcap)
+        live = torch.as_tensor(_live_rows(counts_host[o], jcap), device=dev)
+        jobs = _desc.DescriptorJobs(*(a[jsl][live] for a in jobs_all[:7]),
+                                    count=live.numel())
+        raw_o = torch.zeros((F * jcap, 128), dtype=torch.float32, device=dev)
+        raw_o[live] = _desc.compute_descriptors(blurs[o], jobs, cfg, plain)
+        raw.append(raw_o.view(F, jcap, 128))
+        job_kps.append(jobs_all.kp_index[jsl].view(F, jcap) + int(offs[o]))
+        job_valids.append(jobs_all.valid[jsl].view(F, jcap))
+
+    desc_valid = torch.cat(job_valids, 1)                  # [F, Jtot]
+    desc = _desc.normalize_descriptors(
+        torch.cat(raw, 1).reshape(F * Jtot, 128), cfg)
+    desc = torch.where(desc_valid.reshape(-1)[:, None], desc,
+                       torch.zeros_like(desc))
+
+    scale_row = torch.as_tensor(np.tile(
+        np.exp2(octv_row.astype(np.float32)
+                - np.float32(cfg.upscale_factor)).astype(np.float32), F),
+        device=dev)
+    valid = g.valid.view(F, Ktot)
+    return SiftFeatures(
+        x=(g.x * scale_row).view(F, Ktot),
+        y=(g.y * scale_row).view(F, Ktot),
+        sigma=(g.sigma * scale_row).view(F, Ktot),
+        octave=torch.as_tensor(np.tile(octv_row, (F, 1)), device=dev),
+        num_ori=oris.num_ori.view(F, Ktot),
+        valid=valid,
+        ori=oris.ori.view(F, Ktot, -1),
+        ori_valid=oris.ori_valid.view(F, Ktot, -1),
+        desc=desc.view(F, Jtot, 128),
+        desc_kp=torch.cat(job_kps, 1),
+        desc_valid=desc_valid,
+        n_keypoints=valid.sum(1),
+        n_descriptors=desc_valid.sum(1),
+        octave_candidates=torch.stack([c.n_found for c in cands], 1),
+        octave_dropped=torch.stack([c.n_dropped for c in cands], 1),
+    )
+
+
+def frame_features(feats: SiftFeatures, f: int) -> SiftFeatures:
+    """Frame ``f`` of a batched result (the leading axis dropped)."""
+    return SiftFeatures(*(a[f] for a in feats))
+
+
 def saturation_report(feats: SiftFeatures, plan: ExtractPlan) -> list:
     """Warnings when an octave hit its candidate capacity or the
     compaction density clamp dropped candidates (the reference clamps
@@ -203,3 +351,44 @@ def saturation_report(feats: SiftFeatures, plan: ExtractPlan) -> list:
                 f"by the per-block density clamp; raise "
                 f"config.compact_block_k or the peak threshold")
     return warnings
+
+
+def make_probe_fn(plan: ExtractPlan, device):
+    """Detect-only probe (pipeline.py:787-804): pyramid and the dense
+    per-octave candidate collection (mask K1 on each octave's dense
+    stack, compaction), no refinement or later stage. The returned
+    function maps one image to its per-octave candidate counts, i64
+    numpy [n_octaves]."""
+    cfg = plan.config
+    dev = resolve_device(device)
+
+    def probe(img) -> np.ndarray:
+        img = torch.as_tensor(np.asarray(img)).to(dev)
+        _, dogs = build_pyramid(img, plan.pyramid)
+        cands = [_ext.collect_candidates(dog, cfg, plan.ext_caps[o])
+                 for o, dog in enumerate(dogs)]
+        return torch.stack([c.n_found for c in cands]).cpu().numpy()
+
+    return probe
+
+
+def calibrate_plan(config: SiftConfig, frames, height: int | None = None,
+                   width: int | None = None, headroom: float = 1.5,
+                   probe_capacity: int = 8192, *, device) -> ExtractPlan:
+    """Plan with per-octave capacities pinned from the candidate counts
+    of representative ``frames`` on ``device``, as
+    popsift_tpu.pipeline.calibrate_plan (:807-831) sizes them: the
+    per-octave maximum times ``headroom``, rounded up to a multiple of
+    128, plus 128, at least 256."""
+    frames = list(frames)
+    if height is None or width is None:
+        height, width = np.asarray(frames[0]).shape[-2:]
+    probe_cfg = config.replace(extrema_capacity=probe_capacity)
+    probe = make_probe_fn(build_extract_plan(probe_cfg, height, width),
+                          device)
+    cand = np.zeros(len(config.octave_dims(width, height)), np.int64)
+    for f in frames:
+        cand = np.maximum(cand, probe(f))
+    caps = tuple(int(max(256, -(-int(c * headroom) // 128) * 128 + 128))
+                 for c in cand)
+    return build_extract_plan(config, height, width, octave_caps=caps)

@@ -6,10 +6,10 @@ skip without one. On the card:
 
     python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda
 
-Tolerances: masks and refinement state exact (the kernels are built with
--fmad=false and follow the plain version op for op); histograms and
-descriptors within 1e-5 x the row's max (fixed-order sums in another
-order than the plain version's reductions).
+Tolerances: blur/DoG levels, masks and refinement state exact (the
+kernels are built with -fmad=false and follow the plain version op for
+op); histograms and descriptors within 1e-5 x the row's max (fixed-order
+sums in another order than the plain version's reductions).
 """
 
 import math
@@ -20,8 +20,9 @@ import torch
 
 from popsift_tpu_torch.config import SiftConfig
 from popsift_tpu_torch.ops import extrema
-from popsift_tpu_torch.ops.kernels import (desc, extrema_mask, orient,
-                                           refine)
+from popsift_tpu.gauss import build_gauss_tables, full_kernel
+from popsift_tpu_torch.ops.kernels import (blur_dog, desc, extrema_mask,
+                                           orient, refine)
 
 pytestmark = pytest.mark.cuda
 
@@ -96,3 +97,51 @@ def test_descriptor_kernel(dev):
     got = desc.descriptor_loop(blur, x, y, s, lv, ang, valid, 150, 50)
     ref = desc.descriptor_loop_torch(blur, x, y, s, lv, ang, valid, 150, 50)
     assert torch.all(got[150:] == 0) and _rel_rows(got, ref)
+
+
+@pytest.mark.parametrize("level", [1, 5])
+def test_blur_dog_kernel(dev, level):
+    """K5 on strided level planes of a [N, L, H, W] stack (the batched
+    front's layout) equals its plain version bit for bit."""
+    tables = build_gauss_tables(SiftConfig())
+    k = full_kernel(tables.inc[level], int(tables.inc_span[level]))
+    gen = torch.Generator(device="cpu").manual_seed(level)
+    stack = (torch.rand((3, 4, 75, 131), generator=gen) * 255).to(dev)
+    want = blur_dog.blur_dog_torch(stack[:, 1], k)
+    before = blur_dog.launches
+    got = blur_dog.blur_dog(stack[:, 1], k, out=(stack[:, 2], stack[:, 3]))
+    torch.cuda.synchronize(dev)
+    assert blur_dog.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_extrema_mask_batched_kernel(dev):
+    dog = torch.cat([_dog(dev, seed=s) for s in (4, 5, 6)])
+    before = extrema_mask.launches_batched
+    got = extrema_mask.candidate_mask_batched(dog, 3, 2.72)
+    assert extrema_mask.launches_batched == before + 1
+    ref = extrema_mask.candidate_mask_batched_torch(dog, 3, 2.72)
+    assert ref.sum() > 0 and torch.equal(got, ref)
+    assert torch.equal(got[1], extrema_mask.candidate_mask(dog[5:10], 2.72))
+
+
+@pytest.mark.parametrize("vlfeat", [False, True])
+def test_refine_batched_kernel(dev, vlfeat):
+    cfg = SiftConfig(sift_mode="vlfeat" if vlfeat else "popsift")
+    dog = torch.cat([_dog(dev, seed=s) for s in (7, 8)])
+    rset = extrema.collect_refined_batched(dog, 2, cfg, 512)
+    assert int(rset.n_found.min()) > 0
+    before = refine.launches_batched
+    cap = 512
+    rng = np.random.default_rng(0)
+    z0 = torch.from_numpy(rng.integers(1, 5, 2 * cap)).to(dev)
+    z0[::4] = 4                         # the frames' top DoG layer
+    x0 = torch.from_numpy(rng.integers(4, 127, 2 * cap)).to(dev)
+    y0 = torch.from_numpy(rng.integers(4, 93, 2 * cap)).to(dev)
+    n_found = torch.tensor([cap, 300], device=dev)
+    kw = dict(maxlevel=5, vlfeat=vlfeat)
+    got = refine.refine_state_batched(dog, x0, y0, z0, n_found, 2, **kw)
+    assert refine.launches_batched == before + 1
+    ref = refine.refine_state_batched_torch(dog, x0, y0, z0, n_found, 2,
+                                            **kw)
+    assert torch.equal(got, ref)

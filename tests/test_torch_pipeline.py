@@ -109,6 +109,9 @@ def test_port_never_imports_jax():
         "bad = sorted(k for k in sys.modules if k == 'jax'\n"
         "             or k.startswith(('jax.', 'jaxlib')))\n"
         "assert not bad, bad\n"
+        "for m in ('popsift_tpu_torch.runtime.batchjob',\n"
+        "          'popsift_tpu_torch.cli.batch'):\n"
+        "    assert m in sys.modules, m\n"
         "print('ok', len([k for k in sys.modules\n"
         "                 if k.startswith('popsift_tpu_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
