@@ -15,8 +15,17 @@ any failed phase raises and the script exits non-zero:
    1e-4 on the 0..255 scale, masks exact, refinement state within 1e-5
    with the accept masks exact, histograms and descriptors within 1e-5 x
    the row's max; the batched entries of K1 and K2 on four frames
-   (seeds 0-3), exact; median time of kernel and plain over 20 runs,
-   timed with CUDA events;
+   (seeds 0-3), exact; the window copy K6 and its batched entry, exact;
+   the chain front K7 on every octave against K5's planes (bit-equal, or
+   within 1e-4 with the difference printed); the patch entry of K4 on the
+   densest octave's real jobs against its plain version and against K4,
+   and the bucketed launches of K3 and K4 against the single launch on the
+   same rows, within 1e-5 x the row's max; median time of kernel and
+   plain over 20 runs, timed with CUDA events, and beside them the one
+   PyTorch library call that computes the same function where there is
+   one (two ``F.conv2d`` passes and a subtraction for K5 and K7, one
+   advanced-indexing gather for K6) and the least time the card could
+   take (the bound, see :func:`bound_ms`);
 4. the main path ``PopSift(SiftConfig(extrema_capacity=8192),
    device="cuda").enqueue(frame).get()`` with every launch counter reset
    just before it: 2110 keypoints / 2505 descriptors, no dropped
@@ -32,15 +41,27 @@ any failed phase raises and the script exits non-zero:
    ``enqueue`` and the plain batch; then ``PopSift.calibrate([frame])``
    with the counters reset just before it (its detect-only probe
    launches K5 and the dense K1 entry and nothing else) and ``enqueue``:
-   no octave saturates its calibrated capacity.
+   no octave saturates its calibrated capacity;
+6. the other routes at full 1080p width, counters reset before each run:
+   ``PopSift(cfg, device="cuda", detect="windows")`` ``.enqueue`` and
+   ``.enqueue_batch`` (2110 / 2505 on frame 0, nothing dropped, K6 once
+   per octave and K2 not at all, every frame equal to its
+   ``detect="fused"`` result); ``front="chain"`` the same way (K7
+   launched, K5 not); the entries that no extraction path calls (the
+   patch entry of K4, the bucketed launches of K3 and K4) driven once on
+   the densest octave's rows; warm ms/frame of each route, interleaved
+   with the default route.
 
 TF32 is switched off for matmuls and cuDNN (the plain versions must run
 in full f32). The second line before the last is a JSON object with one
 entry per kernel entry (``launches`` from the run of its path: phase 4
-for the single-frame entries, phase 5 for the batched ones); the last
-line is the device record. ``--profile DIR`` also writes a
-torch.profiler table of one main-path run to DIR/profile.txt and prints
-its device-op count and device busy time.
+for the single-frame entries, phase 5 for the batched ones, phase 6 for
+the window copy, the chain front and the entries off every path); the
+last line is the device record. ``--profile DIR`` also writes a
+torch.profiler table of one run of the main path, of the window route
+and of the chain front to DIR/profile*.txt and prints each run's
+device-op count, device busy time and the device time of the port's own
+kernels.
 """
 
 from __future__ import annotations
@@ -48,6 +69,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -66,6 +88,30 @@ MAIN_PATH = ("blur_dog", "extrema_mask", "refine", "orientation_hist",
 BATCH_PATH = ("blur_dog", "extrema_mask_batched", "refine_batched",
               "orientation_hist", "descriptor_loop")
 PROBE_PATH = ("blur_dog", "extrema_mask")   # the calibration probe
+# phase 6: the window route (single, batch), the chain front, and the
+# entries that no extraction path calls
+WINDOW_PATH = ("blur_dog", "extrema_mask", "extract_windows",
+               "orientation_hist", "descriptor_loop")
+WINDOW_BATCH_PATH = ("blur_dog", "extrema_mask_batched",
+                     "extract_windows_batched", "orientation_hist",
+                     "descriptor_loop")
+CHAIN_PATH = ("blur_chain", "extrema_mask", "refine", "orientation_hist",
+              "descriptor_loop")
+OFF_PATH = ("descriptor_loop_patches", "orientation_hist_bucketed",
+            "descriptor_loop_bucketed")
+# which run's counts a kernel entry reports in the JSON line
+LAUNCHES_FROM = {
+    "blur_dog": "main", "extrema_mask": "main", "refine": "main",
+    "orientation_hist": "main", "descriptor_loop": "main",
+    "extrema_mask_batched": "batch", "refine_batched": "batch",
+    "extract_windows": "windows", "extract_windows_batched": "windows_batch",
+    "blur_chain": "chain", "descriptor_loop_patches": "off_path",
+    "orientation_hist_bucketed": "off_path",
+    "descriptor_loop_bucketed": "off_path"}
+# NVIDIA's data sheet for the H100 SXM: device memory rate and the f32
+# rate outside the tensor cores (every kernel here is plain f32)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 GOLDEN_TOL = dict(x=5e-3, y=5e-3, sigma=1e-3, ori=1e-3, desc=6e-3)
 
 
@@ -122,6 +168,14 @@ def sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
+def closeness(got: torch.Tensor, ref: torch.Tensor) -> str:
+    """How a result that passed its tolerance check agrees: "bit-equal
+    to" or "within <max abs difference> of"."""
+    if torch.equal(got, ref):
+        return "bit-equal to"
+    return f"within {float((got - ref).abs().max()):.3g} of"
+
+
 def rel_row_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     """max |got - ref| / (row max of |ref|) over rows with a non-zero
     reference, and max |got| over rows whose reference is all zero."""
@@ -129,6 +183,15 @@ def rel_row_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     err = (got - ref).abs()
     rel = torch.where(rowmax > 0, err / rowmax.clamp(min=1e-30), err)
     return float(rel.max()) if rel.numel() else 0.0
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple:
+    """(ms, "bytes" or "operations"): the least time the card could take
+    to move ``n_bytes`` (each input read once, each output written once)
+    or to do ``n_ops`` f32 operations, whichever is larger."""
+    t_b = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_o = n_ops / F32_FLOP_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
 def card_phase(dev) -> dict:
@@ -161,11 +224,15 @@ def kernels_phase(frames: list, dev, reps: int = 20) -> list:
     from popsift_tpu_torch.ops import descriptors as D
     from popsift_tpu_torch.ops import extrema as E
     from popsift_tpu_torch.ops import orientation as O
-    from popsift_tpu_torch.ops.kernels import (ENTRIES, blur_dog, desc,
-                                               extrema_mask, orient, refine)
+    from popsift_tpu_torch.ops import patches as PT
+    from popsift_tpu_torch.ops.kernels import (ENTRIES, blur_chain, blur_dog,
+                                               desc, extrema_mask, orient,
+                                               refine, window)
+    from popsift_tpu_torch.ops import pyramid as pyr_mod
     from popsift_tpu_torch.ops.pyramid import (build_pyramid,
                                                build_pyramid_frames)
     from popsift_tpu_torch.pipeline import build_extract_plan
+    import torch.nn.functional as Fn
 
     frame = frames[0]
     cfg = SiftConfig(extrema_capacity=8192)
@@ -180,13 +247,39 @@ def kernels_phase(frames: list, dev, reps: int = 20) -> list:
     nO = len(caps)
     rows = []
 
-    def row(name, err, ms, plain_ms, what=f"per frame (all {nO} octaves)"):
+    def row(name, err, ms, plain_ms, bound, library_ms=None,
+            what=f"per frame (all {nO} octaves)"):
         mod, _, replaces = ENTRIES[name]
         rows.append({"name": name, "route": "cuda", "source": mod.SOURCE,
                      "replaces": replaces, "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms})
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                     "bound_by": bound[1], "library_ms": library_ms})
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         say(f"{name}: max_abs_err {err:.3g}, kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms {what}")
+            f"plain {plain_ms:.4f} ms, library call {lib}, bound "
+            f"{bound[0]:.4f} ms (by {bound[1]}) {what}")
+
+    # The work each bound counts, from this run's shapes and rows. Bytes:
+    # every input read once, every output written once. Operations:
+    # nominal f32 counts of the function itself (no halo recomputation).
+    px = [h * w for h, w in dims]             # pixels per octave
+    spans = [(k.shape[0] - 1) // 2 for k in plan.pyramid.inc_kernels]
+    levels = range(1, cfg.total_levels)
+    # a blur level: two passes of 1 + 3S operations and the DoG's subtraction
+    blur_ops = sum(p * (2 * (1 + 3 * spans[l]) + 1)
+                   for p in px for l in levels)
+
+    def conv_library(src, kernel):
+        """Two F.conv2d passes on the replicate-padded plane and the
+        subtraction: the library's form of one blur level and its DoG."""
+        S = (kernel.shape[0] - 1) // 2
+        w = torch.as_tensor(kernel, device=dev)
+        x = src[:, None]
+        h = Fn.conv2d(Fn.pad(x, (S, S, 0, 0), mode="replicate"),
+                      w.view(1, 1, 1, -1))
+        b = Fn.conv2d(Fn.pad(h, (0, 0, S, S), mode="replicate"),
+                      w.view(1, 1, -1, 1))
+        return b[:, 0], b[:, 0] - src
 
     # K5 blur + DoG: every (octave, level) of the frame, from the same
     # level l-1 as input
@@ -202,12 +295,46 @@ def kernels_phase(frames: list, dev, reps: int = 20) -> list:
     check(err <= 1e-4, f"K5 blur/DoG differ by {err} (limit 1e-4)")
     say(f"K5 {'bit-equal to' if err == 0 else 'within 1e-4 of'} its plain "
         f"version over {len(bargs)} levels")
+    lerr = max(float((a - b).abs().max()) for src, k in bargs
+               for a, b in zip(conv_library(src, k),
+                               blur_dog.blur_dog(src, k)))
+    check(lerr <= 1e-3, f"F.conv2d blur/DoG differ from K5 by {lerr}")
+    say(f"F.conv2d (two passes + subtraction) within {lerr:.3g} of K5")
+    conv_ms = median_ms(lambda: [conv_library(*a) for a in bargs], dev, reps)
     row(blur_dog.NAME, err,
         median_ms(lambda: [blur_dog.blur_dog(*a) for a in bargs], dev, reps),
         median_ms(lambda: [blur_dog.blur_dog_torch(*a) for a in bargs], dev,
-                  reps))
+                  reps),
+        bound_ms(sum(12 * p for p in px for _ in levels), blur_ops), conv_ms)
 
-    # K1 mask
+    # K7 chain front: every octave's levels 1..L-1 from level 0 in groups
+    # of three, against the planes K5 wrote into the pyramid
+    G = pyr_mod.CHAIN_GROUP
+    kern = list(plan.pyramid.inc_kernels[1:])
+    err = 0.0
+    for o in range(nO):
+        cb, cd = blur_chain.blur_chain(blurs[o][0:1], kern, G)
+        sync(dev)
+        err = max(err, float((cb[0] - blurs[o][1:]).abs().max()),
+                  float((cd[0] - dogs[o]).abs().max()))
+    check(err <= 1e-4, f"K7 levels differ from K5's by {err} (limit 1e-4)")
+    say(f"K7 {'bit-equal to' if err == 0 else f'within {err:.3g} of'} K5's "
+        f"planes on all {nO} octaves (groups of {G})")
+    n_groups = [min(G, len(kern) - g0) for g0 in range(0, len(kern), G)]
+    row(blur_chain.NAME, err,
+        median_ms(lambda: [blur_chain.blur_chain(blurs[o][0:1], kern, G)
+                           for o in range(nO)], dev, reps),
+        median_ms(lambda: [blur_chain.blur_chain_torch(blurs[o][0:1], kern)
+                           for o in range(nO)], dev, reps),
+        bound_ms(sum((4 + 8 * n) * p for p in px for n in n_groups),
+                 blur_ops), conv_ms)
+
+    # K1 mask: Z + 2 f32 layers read, Z u8 layers written; 26 comparisons,
+    # the contrast gate and their combination for each of Z layers' pixels
+    def mask_bound(n_frames):
+        return bound_ms(n_frames * sum(((Z + 2) * 4 + Z) * p for p in px),
+                        n_frames * sum(30 * Z * p for p in px))
+
     dstk = [d[:Z + 2].contiguous() for d in dogs]
     err = 0
     for d in dstk:
@@ -220,9 +347,16 @@ def kernels_phase(frames: list, dev, reps: int = 20) -> list:
         median_ms(lambda: [extrema_mask.candidate_mask(d, thr1)
                            for d in dstk], dev, reps),
         median_ms(lambda: [extrema_mask.candidate_mask_torch(d, thr1)
-                           for d in dstk], dev, reps))
+                           for d in dstk], dev, reps),
+        mask_bound(1))
 
-    # K2 refine
+    # K2 refine: a candidate's coordinates and 27 neighbours read at least
+    # once and its 16-float state written (every capacity row is written);
+    # about 150 operations for one step, which every candidate needs (how
+    # many of the five steps each took is not counted)
+    def refine_bound(n_live, n_rows):
+        return bound_ms(n_live * (12 + 27 * 4) + n_rows * 64, n_live * 150)
+
     cands = [E.collect_candidates(d, cfg, caps[o])
              for o, d in enumerate(dogs)]
     nf = [int(c.n_found) for c in cands]
@@ -247,7 +381,45 @@ def kernels_phase(frames: list, dev, reps: int = 20) -> list:
         median_ms(lambda: [refine.refine_state(*a, **kw) for a in args],
                   dev, reps),
         median_ms(lambda: [refine.refine_state_torch(*a, **kw)
-                           for a in args], dev, reps))
+                           for a in args], dev, reps),
+        refine_bound(sum(nf), sum(caps)))
+
+    # K6 window copy: the capacity-padded windows of every octave
+    WR, WP = E.WINDOW_RADIUS, E.WINDOW_SIDE
+    wargs = [(dogs[o], c.y0, c.x0, c.n_found, WR, WP, WP)
+             for o, c in enumerate(cands)]
+    wk = [window.extract_windows(*a) for a in wargs]
+    wp = [window.extract_windows_torch(*a) for a in wargs]
+    check(all(torch.equal(a, b) for a, b in zip(wk, wp)),
+          "K6 windows differ from the plain version")
+    check(all(bool((w[n:] == 0).all()) for w, n in zip(wk, nf)),
+          "K6 rows past the count are not zero")
+    say(f"K6 bit-equal to its plain version on {sum(nf)} live of "
+        f"{sum(caps)} rows")
+    del wk, wp
+
+    def gather_library(vol, cy, cx, n_valid, radius, rows_, cols_):
+        """One advanced-indexing gather: the library's form of K6 (no
+        zeroing of the rows past the count)."""
+        D_, H_, W_ = vol.shape
+        yi = (cy[:, None] - radius + ar_p).clamp(0, H_ - 1)
+        xi = (cx[:, None] - radius + ar_p).clamp(0, W_ - 1)
+        return vol[torch.arange(D_, device=dev)[None, :, None, None],
+                   yi[:, None, :, None], xi[:, None, None, :]]
+
+    ar_p = torch.arange(WP, device=dev)
+    wbytes = 4 * dogs[0].shape[0] * WP * WP
+
+    def window_bound(n_live, n_rows):
+        return bound_ms(n_live * wbytes + n_rows * (wbytes + 8), 0)
+
+    row(window.NAME, 0.0,
+        median_ms(lambda: [window.extract_windows(*a) for a in wargs], dev,
+                  reps),
+        median_ms(lambda: [window.extract_windows_torch(*a) for a in wargs],
+                  dev, reps),
+        window_bound(sum(nf), sum(caps)),
+        median_ms(lambda: [gather_library(*a) for a in wargs], dev, reps))
 
     # K3 orientation histograms
     offs = np.concatenate([[0], np.cumsum(caps)]).astype(int)
@@ -261,11 +433,37 @@ def kernels_phase(frames: list, dev, reps: int = 20) -> list:
     hp = torch.cat([orient.orientation_hist_torch(*a) for a in oargs])
     rel = rel_row_err(hk, hp)
     check(rel <= 1e-5, f"K3 histograms differ by {rel} x row max")
-    row(orient.NAME, float((hk - hp).abs().max()),
-        median_ms(lambda: [orient.orientation_hist(*a) for a in oargs],
-                  dev, reps),
+    # a valid row's window of radius r = round(4.5 sigma) with its
+    # gradient margin read once, its 36 bins written; about 40 operations a
+    # pixel (gradient, sqrt, atan2, exp, bin)
+    rad = torch.round(g.sigma[g.valid] * 4.5)
+    ori_bound = bound_ms(
+        float(((2 * rad + 3) ** 2).sum()) * 4 + sum(caps) * 36 * 4,
+        float(((2 * rad + 1) ** 2).sum()) * 40)
+    ori_ms = median_ms(lambda: [orient.orientation_hist(*a) for a in oargs],
+                       dev, reps)
+    row(orient.NAME, float((hk - hp).abs().max()), ori_ms,
         median_ms(lambda: [orient.orientation_hist_torch(*a)
-                           for a in oargs], dev, reps))
+                           for a in oargs], dev, reps), ori_bound)
+
+    # bucketed launches of K3: the same rows through two launches an octave
+    split = cfg.sigma * 2.0 ** (2.5 / cfg.levels)
+    r_small = int(round(3.0 * 1.5 * split))
+    bo = [(a[0], a[1], a[2], a[3], a[4], a[5], R, split, r_small)
+          for a in oargs]
+    hb = torch.cat([orient.orientation_hist_bucketed(*a) for a in bo])
+    rel = rel_row_err(hb, hk)
+    check(rel <= 1e-5, f"bucketed K3 differs from the single launch by "
+          f"{rel} x row max")
+    say(f"bucketed K3 {closeness(hb, hk)} the single launch on the same "
+        f"rows")
+    hbp = torch.cat([orient.orientation_hist_bucketed(*a, plain=True)
+                     for a in bo])
+    row(orient.NAME_BUCKETED, float((hb - hbp).abs().max()),
+        median_ms(lambda: [orient.orientation_hist_bucketed(*a) for a in bo],
+                  dev, reps),
+        median_ms(lambda: [orient.orientation_hist_bucketed(*a, plain=True)
+                           for a in bo], dev, reps), ori_bound)
 
     # K4 descriptors
     oris = O.orientations_from_histograms(hk, g.valid)
@@ -287,12 +485,86 @@ def kernels_phase(frames: list, dev, reps: int = 20) -> list:
     dp = torch.cat([desc.descriptor_loop_torch(*a) for a in dargs])
     rel = rel_row_err(dk, dp)
     check(rel <= 1e-5, f"K4 descriptors differ by {rel} x row max")
+    # a valid job's support of half-side s = ceil(2.5 sqrt(2) 3 sigma) + 2
+    # (at most the static radius) with its gradient margin read once, its
+    # 128 bins written; about 90 operations a pixel (gradient, sqrt, atan2,
+    # exp and the rotation 40, eight tile weights 24, eight bin updates 24)
+    sup = (torch.ceil(jobs.sigma[jobs.valid] * (3.0 * 2.5 * 2.0 ** 0.5)) + 2
+           ).clamp(max=radius)
+    n_jobs_cap = int(joff[-1])
+    desc_ops = float(((2 * sup + 1) ** 2).sum()) * 90
+    desc_bound = bound_ms(
+        float(((2 * sup + 3) ** 2).sum()) * 4 + n_jobs_cap * 128 * 4,
+        desc_ops)
     row(desc.NAME, float((dk - dp).abs().max()),
         median_ms(lambda: [desc.descriptor_loop(*a) for a in dargs],
                   dev, reps),
         median_ms(lambda: [desc.descriptor_loop_torch(*a) for a in dargs],
-                  dev, reps))
-    del blurs, dogs, bargs, args, oargs, dargs
+                  dev, reps), desc_bound)
+
+    # bucketed launches of K4 on the same rows
+    r_small = int(np.ceil(2.5 * 2.0 ** 0.5 * 3.0 * split)) + 2
+    bd = [(a[0], a[1], a[2], a[3], a[4], a[5], a[6], radius, split, r_small)
+          for a in dargs]
+    db = torch.cat([desc.descriptor_loop_bucketed(*a) for a in bd])
+    rel = rel_row_err(db, dk)
+    check(rel <= 1e-5, f"bucketed K4 differs from the single launch by "
+          f"{rel} x row max")
+    say(f"bucketed K4 {closeness(db, dk)} the single launch on the same "
+        f"rows")
+    dbp = torch.cat([desc.descriptor_loop_bucketed(*a, plain=True)
+                     for a in bd])
+    rel = rel_row_err(db, dbp)
+    check(rel <= 1e-5, f"bucketed K4 differs from its plain version by "
+          f"{rel} x row max")
+    row(desc.NAME_BUCKETED, float((db - dbp).abs().max()),
+        median_ms(lambda: [desc.descriptor_loop_bucketed(*a) for a in bd],
+                  dev, reps),
+        median_ms(lambda: [desc.descriptor_loop_bucketed(*a, plain=True)
+                           for a in bd], dev, reps), desc_bound)
+
+    # the patch entry of K4 on the densest octave's real jobs: windows of
+    # 104 x 128 cut around each job, as the JAX tests cut them
+    od = int(np.argmax(counts))
+    blur_o, jx, jy, jsig, jlev, jang, jval, jn, _ = dargs[od]
+    prow = -(-(2 * radius + 1) // 8) * 8
+    pcol = -(-(2 * radius + 1) // 128) * 128
+    sel = slice(0, jn)
+    pt, py0, px0 = PT.extract_patches_rect(
+        PT.pad_for_patches(blur_o, max(prow, pcol)), jlev[sel],
+        torch.round(jy[sel]).long(), torch.round(jx[sel]).long(), prow, pcol,
+        radius, radius)
+    pargs = (pt, py0, px0, jx[sel], jy[sel], jsig[sel], jang[sel], jval[sel],
+             *dims[od])
+    pk = desc.descriptor_loop_patches(*pargs)
+    pp = desc.descriptor_loop_patches_torch(*pargs)
+    rel = rel_row_err(pk, pp)
+    check(rel <= 1e-5, f"patch entry differs from its plain version by "
+          f"{rel} x row max")
+    sargs = (blur_o, jx[sel], jy[sel], jsig[sel], jlev[sel], jang[sel],
+             jval[sel], jn, radius)
+    ks = desc.descriptor_loop(*sargs)
+    # jobs whose support fits the static window: past it the stack entry
+    # truncates and wraps as the XLA twin does, the patch entry pads zeros
+    fits = torch.ceil(jsig[sel] * (3.0 * 2.5 * 2.0 ** 0.5)) + 2 <= radius
+    rel = rel_row_err(pk[fits], ks[fits])
+    check(rel <= 1e-5, f"patch entry differs from K4 by {rel} x row max")
+    say(f"patch entry on octave {od}: {jn} jobs of {prow} x {pcol} cells, "
+        f"within 1e-5 x row max of its plain version, "
+        f"{closeness(pk[fits], ks[fits])} K4 on the {int(fits.sum())} jobs "
+        f"whose support fits the window")
+    k4_ms = median_ms(lambda: desc.descriptor_loop(*sargs), dev, reps)
+    sup_o = (torch.ceil(jsig[sel][jval[sel]] * (3.0 * 2.5 * 2.0 ** 0.5)) + 2
+             ).clamp(max=radius)
+    row(desc.NAME_PATCHES, float((pk - pp).abs().max()),
+        median_ms(lambda: desc.descriptor_loop_patches(*pargs), dev, reps),
+        median_ms(lambda: desc.descriptor_loop_patches_torch(*pargs), dev,
+                  max(3, reps // 4)),
+        bound_ms(pt.numel() * 4 + jn * 128 * 4,
+                 float(((2 * sup_o + 1) ** 2).sum()) * 90),
+        what=f"on octave {od}'s {jn} jobs (K4 on the same jobs: "
+             f"{k4_ms:.4f} ms)")
+    del blurs, dogs, bargs, args, oargs, dargs, wargs, bo, bd, pt, pargs
 
     # batched K1 and K2 on all frames' stacks (frames back to back on the
     # layer axis), one launch per octave each
@@ -312,7 +584,8 @@ def kernels_phase(frames: list, dev, reps: int = 20) -> list:
         median_ms(lambda: [extrema_mask.candidate_mask_batched(d, F, thr1)
                            for d in bdogs], dev, reps),
         median_ms(lambda: [extrema_mask.candidate_mask_batched_torch(
-            d, F, thr1) for d in bdogs], dev, reps), what)
+            d, F, thr1) for d in bdogs], dev, reps), mask_bound(F),
+        what=what)
 
     bc = [E.collect_candidates_batched(d, F, cfg, caps[o])
           for o, d in enumerate(bdogs)]
@@ -335,7 +608,36 @@ def kernels_phase(frames: list, dev, reps: int = 20) -> list:
         median_ms(lambda: [refine.refine_state_batched(*a, **kw)
                            for a in bargs], dev, reps),
         median_ms(lambda: [refine.refine_state_batched_torch(*a, **kw)
-                           for a in bargs], dev, reps), what)
+                           for a in bargs], dev, reps),
+        refine_bound(sum(int(c.n_found.sum()) for c in bc), F * sum(caps)),
+        what=what)
+
+    # batched K6 on the same candidates
+    wargs = [(bdogs[o], c.y0, c.x0, c.n_found, F, WR, WP, WP)
+             for o, c in enumerate(bc)]
+    for a in wargs:
+        check(bool(torch.equal(window.extract_windows_batched(*a),
+                               window.extract_windows_batched_torch(*a))),
+              "batched K6 windows differ from the plain version")
+    say("batched K6 bit-equal to its plain version")
+
+    def gather_library_b(vol, cy, cx, n_found, F_, radius, rows_, cols_):
+        D_ = vol.shape[0] // F_
+        zi = (torch.arange(cy.shape[0], device=dev) // (cy.shape[0] // F_)
+              * D_)[:, None] + torch.arange(D_, device=dev)
+        yi = (cy[:, None] - radius + ar_p).clamp(0, vol.shape[1] - 1)
+        xi = (cx[:, None] - radius + ar_p).clamp(0, vol.shape[2] - 1)
+        return vol[zi[:, :, None, None], yi[:, None, :, None],
+                   xi[:, None, None, :]]
+
+    row(window.NAME_BATCHED, 0.0,
+        median_ms(lambda: [window.extract_windows_batched(*a)
+                           for a in wargs], dev, reps),
+        median_ms(lambda: [window.extract_windows_batched_torch(*a)
+                           for a in wargs], dev, reps),
+        window_bound(sum(int(c.n_found.sum()) for c in bc), F * sum(caps)),
+        median_ms(lambda: [gather_library_b(*a) for a in wargs], dev, reps),
+        what=what)
     return rows
 
 
@@ -547,6 +849,159 @@ def batch_phase(frames: list, dev, reps: int = 3) -> dict:
     return launches
 
 
+def routes_phase(frames: list, dev, reps: int = 7) -> dict:
+    """The window detection route and the chain front at full width
+    against the default route (``detect="fused"``, ``front="level"``),
+    then the entries that no extraction path calls; returns the launch
+    counts of each run."""
+    from popsift_tpu_torch.api import PopSift
+    from popsift_tpu_torch.config import SiftConfig
+    from popsift_tpu_torch.ops import descriptors as D
+    from popsift_tpu_torch.ops import kernels
+    from popsift_tpu_torch.ops import orientation as O
+    from popsift_tpu_torch.ops import patches as PT
+    from popsift_tpu_torch.ops.kernels import desc, orient
+    from popsift_tpu_torch.ops.pyramid import CHAIN_GROUP, build_pyramid
+    from popsift_tpu_torch.pipeline import (build_extract_plan, extract,
+                                            extract_batch)
+
+    cfg = SiftConfig(extrema_capacity=8192)
+    plan = build_extract_plan(cfg, *frames[0].shape)
+    n_oct, F = len(plan.ext_caps), len(frames)
+    n_groups = -(-(cfg.total_levels - 1) // CHAIN_GROUP)
+    base = PopSift(cfg, device=dev)
+    base_jobs = [base.enqueue(f) for f in frames]
+    out = {}
+
+    def drive(tag, path, batch, **route):
+        """One run of a route with the counters reset just before it."""
+        ps = PopSift(cfg, device=dev, **route)
+        kernels.reset_launch_counts()
+        jobs = ps.enqueue_batch(frames) if batch else [ps.enqueue(frames[0])]
+        hosts = [j.get() for j in jobs]
+        launches = kernels.launch_counts()
+        out[tag] = launches
+        say(f"{tag} {route}: {[h.getFeatureCount() for h in hosts]} "
+            f"keypoints, {[h.getDescriptorCount() for h in hosts]} "
+            f"descriptors, launches {launches}")
+        for name in path:
+            check(launches[name] > 0, f"{tag}: kernel {name} was not launched")
+        for name, n in launches.items():
+            check(n == 0 or name in path, f"{tag}: {name} launched {n} times")
+        check(hosts[0].getFeatureCount() == BENCH_KEYPOINTS
+              and hosts[0].getDescriptorCount() == BENCH_DESCRIPTORS
+              and not jobs[0].raw.octave_dropped.any(),
+              f"{tag}: frame 0 is not 2110 / 2505 with nothing dropped")
+        for f, job in enumerate(jobs):
+            res = {k: _same_field(k, a, b) for k, a, b in
+                   zip(job.raw._fields, job.raw, base_jobs[f].raw)}
+            check(bool(np.isfinite(hosts[f].descriptors).all()),
+                  f"{tag}: non-finite descriptors in frame {f}")
+            say(f"{tag} frame {f} vs the default route: {res}")
+        return launches
+
+    n = drive("windows", WINDOW_PATH, False, detect="windows")
+    check(n["extract_windows"] == n_oct and n["refine"] == 0,
+          f"window route launched K6 {n['extract_windows']} times for "
+          f"{n_oct} octaves and K2 {n['refine']} times")
+    n = drive("windows_batch", WINDOW_BATCH_PATH, True, detect="windows")
+    check(n["extract_windows_batched"] == n_oct
+          and n["refine_batched"] == 0 and n["refine"] == 0,
+          f"batched window route launched K6 "
+          f"{n['extract_windows_batched']} times for {n_oct} octaves")
+    n = drive("chain", CHAIN_PATH, False, front="chain")
+    check(n["blur_chain"] == n_oct * n_groups and n["blur_dog"] == 0,
+          f"chain front launched K7 {n['blur_chain']} times for {n_oct} "
+          f"octaves of {n_groups} groups and K5 {n['blur_dog']} times")
+    drive("chain_batch", CHAIN_PATH[:1] + BATCH_PATH[1:], True,
+          front="chain")
+    drive("windows_chain", ("blur_chain",) + WINDOW_PATH[1:], False,
+          detect="windows", front="chain")
+
+    # the entries off every path, driven once on the densest octave's rows
+    # of frame 0 (finite, the expected shape; phase 3 held them against
+    # their plain versions)
+    raw = base_jobs[0].raw
+    od = int(raw.octave_candidates.argmax())
+    offs = np.concatenate([[0], np.cumsum(plan.ext_caps)]).astype(int)
+    sl = slice(offs[od], offs[od + 1])
+    blurs, _ = build_pyramid(torch.from_numpy(frames[0]).to(dev),
+                             plan.pyramid)
+    scale = 2.0 ** (od - cfg.upscale_factor)
+    kx, ky, ks = (raw.x[sl] / scale, raw.y[sl] / scale, raw.sigma[sl] / scale)
+    level = torch.round(torch.log2(ks.clamp(min=1e-6) / cfg.sigma)
+                        * cfg.levels).long()
+    valid = raw.valid[sl] & (raw.num_ori[sl] > 0)   # the octave's keypoints
+    split = cfg.sigma * 2.0 ** (2.5 / cfg.levels)
+    radius = D.loop_patch_radius(cfg)
+    kernels.reset_launch_counts()
+    hist = orient.orientation_hist_bucketed(
+        blurs[od], kx, ky, ks, level, valid, O.max_ori_radius(cfg), split,
+        int(round(4.5 * split)))
+    ang = raw.ori[sl][:, 0]
+    dsc = desc.descriptor_loop_bucketed(
+        blurs[od], kx, ky, ks, level, ang, valid, radius, split,
+        int(np.ceil(2.5 * 2.0 ** 0.5 * 3.0 * split)) + 2)
+    rows = valid.nonzero().squeeze(1)
+    prow = -(-(2 * radius + 1) // 8) * 8
+    pcol = -(-(2 * radius + 1) // 128) * 128
+    pt, py0, px0 = PT.extract_patches_rect(
+        PT.pad_for_patches(blurs[od], max(prow, pcol)), level[rows],
+        torch.round(ky[rows]).long(), torch.round(kx[rows]).long(), prow,
+        pcol, radius, radius)
+    dpt = desc.descriptor_loop_patches(pt, py0, px0, kx[rows], ky[rows],
+                                       ks[rows], ang[rows], valid[rows],
+                                       *plan.pyramid.dims[od])
+    out["off_path"] = kernels.launch_counts()
+    say(f"entries off every path on octave {od} ({rows.numel()} keypoints): "
+        f"launches {out['off_path']}")
+    for name in OFF_PATH:
+        check(out["off_path"][name] > 0, f"{name} was not launched")
+    check(hist.shape == (valid.numel(), 36)
+          and dsc.shape == (valid.numel(), 128)
+          and dpt.shape == (rows.numel(), 128), "off-path entries: shapes")
+    for t in (hist, dsc, dpt):
+        check(bool(torch.isfinite(t).all()), "off-path entries: non-finite")
+    check(bool((hist[valid].sum(1) > 0).all() and (dpt.sum(1) > 0).all()
+               and (dsc[valid].sum(1) > 0).all()),
+          "off-path entries: an empty row for a valid keypoint")
+    rel = rel_row_err(dpt, dsc[rows])
+    say(f"patch entry against bucketed K4 on these keypoints: "
+        f"{rel:.3g} x row max")
+
+    # warm ms/frame, interleaved with the default route
+    imgs = np.stack(frames)
+    routes = {"default": {}, "windows": dict(detect="windows"),
+              "chain": dict(front="chain"),
+              "windows+chain": dict(detect="windows", front="chain")}
+
+    def run(route, batch):
+        if batch:
+            extract_batch(imgs, plan, dev, **routes[route])
+        else:
+            extract(frames[0], plan, dev, **routes[route])
+        sync(dev)
+
+    for batch, nrep in ((False, reps), (True, max(3, reps - 2))):
+        names = list(routes)
+        for r in names:
+            run(r, batch)
+        times = {r: [] for r in names}
+        for i in range(nrep):
+            order = names[i % len(names):] + names[:i % len(names)]
+            for r in order:
+                t0 = time.perf_counter()
+                run(r, batch)
+                times[r].append((time.perf_counter() - t0) * 1e3
+                                / (F if batch else 1))
+        say(f"{'batch of %d' % F if batch else 'single frame'} ms/frame "
+            f"(warm median of {nrep}, min in brackets, interleaved, host "
+            f"clock, ends in synchronize): " + ", ".join(
+                f"{r} {statistics.median(t):.2f} [{min(t):.2f}]"
+                for r, t in times.items()))
+    return out
+
+
 def profile_phase(frame: np.ndarray, dev, out_dir: str) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -555,25 +1010,37 @@ def profile_phase(frame: np.ndarray, dev, out_dir: str) -> None:
     from popsift_tpu_torch.pipeline import build_extract_plan, extract
     plan = build_extract_plan(SiftConfig(extrema_capacity=8192),
                               *frame.shape)
-    extract(frame, plan, dev)
-    sync(dev)
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        extract(frame, plan, dev)
-        sync(dev)
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "profile.txt")
-    avg = prof.key_averages()
-    with open(path, "w") as fh:
-        for key in ("self_cuda_time_total", "cpu_time_total"):
-            fh.write(avg.table(sort_by=key, row_limit=40))
-            fh.write("\n")
-    dev_ops = [e for e in avg if e.device_type == DeviceType.CUDA]
-    say(f"profile: {sum(e.count for e in dev_ops)} device ops, device busy "
-        f"{sum(e.self_device_time_total for e in dev_ops) / 1e3:.3f} ms, "
-        f"host launch calls "
-        f"{sum(e.count for e in avg if 'LaunchKernel' in e.key)}; "
-        f"table in {path}")
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    routes = {"profile": {}, "profile_windows": dict(detect="windows"),
+              "profile_chain": dict(front="chain")}
+    for name, route in routes.items():
+        extract(frame, plan, dev, **route)
+        sync(dev)
+        with profile(activities=acts) as prof:
+            extract(frame, plan, dev, **route)
+            sync(dev)
+        path = os.path.join(out_dir, f"{name}.txt")
+        avg = prof.key_averages()
+        with open(path, "w") as fh:
+            for key in ("self_cuda_time_total", "cpu_time_total"):
+                fh.write(avg.table(sort_by=key, row_limit=40))
+                fh.write("\n")
+        dev_ops = [e for e in avg if e.device_type == DeviceType.CUDA]
+        ours = {}       # the port's kernels live in anonymous namespaces
+        for e in dev_ops:
+            m = re.search(r"\(anonymous namespace\)::(\w+_kernel)", e.key)
+            if m and "at::" not in e.key:
+                ours[m.group(1)] = round(ours.get(m.group(1), 0.0)
+                                         + e.self_device_time_total / 1e3, 3)
+        say(f"{name} {route}: {sum(e.count for e in dev_ops)} device ops, "
+            f"device busy "
+            f"{sum(e.self_device_time_total for e in dev_ops) / 1e3:.3f} ms, "
+            f"host launch calls "
+            f"{sum(e.count for e in avg if 'LaunchKernel' in e.key)}, "
+            f"stream syncs "
+            f"{sum(e.count for e in avg if 'StreamSynchronize' in e.key)}; "
+            f"the port's kernels (device ms) {ours}; table in {path}")
 
 
 def main(argv=None) -> int:
@@ -606,10 +1073,13 @@ def main(argv=None) -> int:
     if args.profile:
         profile_phase(frames[0], dev, args.profile)
     say("phase 5: batch path and calibration")
-    batch_launches = batch_phase(frames, dev)
+    runs = {"main": launches, "batch": batch_phase(frames, dev)}
+    say("phase 6: window route, chain front and the entries off every path")
+    runs.update(routes_phase(frames, dev))
     for r in rows:
-        r["launches"] = (launches if r["name"] in MAIN_PATH
-                         else batch_launches)[r["name"]]
+        r["launches"] = runs[LAUNCHES_FROM[r["name"]]][r["name"]]
+        check(r["launches"] > 0, f"{r['name']} was launched no time in the "
+              f"run of its path")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

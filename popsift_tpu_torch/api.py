@@ -22,9 +22,10 @@ import numpy as np
 import torch
 
 from .config import SiftConfig
-from .pipeline import (ExtractPlan, SiftFeatures, build_extract_plan,
-                       calibrate_plan, extract, extract_batch,
-                       frame_features, saturation_report)
+from .ops.pyramid import FRONTS
+from .pipeline import (DETECT_ROUTES, ExtractPlan, SiftFeatures,
+                       build_extract_plan, calibrate_plan, extract,
+                       extract_batch, frame_features, saturation_report)
 from .utils.device import resolve_device
 
 
@@ -89,8 +90,8 @@ class FeaturesHost:
 
     def save(self, path: str, write_as_uchar: bool = False):
         """Write the reference text format (features.cu:308-328), one line
-        per descriptor, with the shared native writer."""
-        from popsift_tpu.runtime import native
+        per descriptor, with the native writer."""
+        from .runtime import native
         order = np.lexsort((np.arange(len(self.desc_to_kp)),
                             self.desc_to_kp))
         kp = self.desc_to_kp[order]
@@ -176,12 +177,20 @@ class PopSift:
     device. mode: "extracting" returns host features from jobs,
     "matching" keeps them on the device (ProcessingMode,
     sift_conf.h:87-90). ``device`` is "cuda" (the default), "cuda:N" or
-    "cpu"; a CUDA device on a machine without one raises here."""
+    "cpu"; a CUDA device on a machine without one raises here.
+    ``detect`` ("fused", the default, or "windows") and ``front``
+    ("level", the default, or "chain") choose the detection route and
+    the pyramid front of every extraction and of the calibration probe
+    (:mod:`popsift_tpu_torch.pipeline`); all give the same features."""
 
     def __init__(self, config: SiftConfig | None = None,
-                 mode: str = "extracting", device="cuda"):
+                 mode: str = "extracting", device="cuda",
+                 detect: str = "fused", front: str = "level"):
         if mode not in ("extracting", "matching"):
             raise ValueError(f"bad mode {mode!r}")
+        if detect not in DETECT_ROUTES or front not in FRONTS:
+            raise ValueError(f"bad route detect={detect!r}, front={front!r}")
+        self._routes = dict(detect=detect, front=front)
         self._config = config or SiftConfig()
         self._mode = mode
         self.device = resolve_device(device)
@@ -213,7 +222,7 @@ class PopSift:
         frames = [np.asarray(f) for f in frames]
         h, w = frames[0].shape[-2:]
         plan = calibrate_plan(self._config, frames, h, w, headroom=headroom,
-                              device=self.device)
+                              device=self.device, front=self._routes["front"])
         with self._lock:
             self._plans[(h, w, self._config)] = plan
         return plan
@@ -223,8 +232,8 @@ class PopSift:
         [0, 1] (ImageFloat mode, s_image.cu:264-293)."""
         image = _check_image(np.asarray(image), "enqueue")
         plan = self._plan_for(*image.shape)
-        return SiftJob(extract(image, plan, self.device), plan,
-                       mode=self._mode)
+        return SiftJob(extract(image, plan, self.device, **self._routes),
+                       plan, mode=self._mode)
 
     def enqueue_batch(self, images) -> list:
         """Submit F same-sized grayscale frames as one batched extraction
@@ -239,7 +248,8 @@ class PopSift:
             raise ValueError("enqueue_batch expects F >= 1 frames of one "
                              "shape and type")
         plan = self._plan_for(*imgs[0].shape)
-        out = extract_batch(np.stack(imgs), plan, self.device)
+        out = extract_batch(np.stack(imgs), plan, self.device,
+                            **self._routes)
         return [SiftJob(frame_features(out, f), plan, mode=self._mode)
                 for f in range(len(imgs))]
 

@@ -70,9 +70,8 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from popsift_tpu.io.image import load_image
-
     from ..api import PopSift
+    from ..io.image import load_image
 
     img = load_image(args.input)
     if args.float_mode:

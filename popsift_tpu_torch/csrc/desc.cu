@@ -33,6 +33,15 @@
 // Angles: tha = theta - ang folded into [0, 2 pi), tth = tha * 4/pi,
 // fo = floor(tth) taken modulo 8 with non-negative operands (C's % keeps the
 // dividend's sign, jnp.mod the divisor's).
+//
+// Patch entry (replaces popsift_tpu/ops/pallas/desc.py:descriptor_loop_pallas,
+// the Pallas call at :174): the same block and bin layout on pre-cut windows,
+// f32[F, P, PL] with origins (y0, x0): cell (i, j) of job k is the pixel
+// (y0[k] + i, x0[k] + j). The gradient is the central difference inside the
+// patch with zeros beyond its edge (desc.py:92-97), where the stack entry
+// wraps; both agree wherever the bounds test 1 <= px <= W-2, 1 <= py <= H-2
+// passes and the support lies inside the window. atan2f is the native one
+// (the TPU kernel's polynomial stood in for a missing primitive).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,14 +58,20 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
     return v < lo ? lo : (v > hi ? hi : v);
 }
 
+// PATCH = false: `src` is the blur stack f32[L, H, W], the window is the
+// twin's static (2R+1)^2 one (P = PL = 2R + 1). PATCH = true: `src` is the
+// patch array f32[F, P, PL] with origins (y0s, x0s); levels and R are unused.
+template <bool PATCH>
 __global__ void __launch_bounds__(NT)
-descriptor_loop_kernel(const float* __restrict__ blur, int L, int H, int W,
+descriptor_loop_kernel(const float* __restrict__ src, int L, int H, int W,
                        const float* __restrict__ xs,
                        const float* __restrict__ ys,
                        const float* __restrict__ sigmas,
                        const int* __restrict__ levels,
                        const float* __restrict__ angs,
                        const uint8_t* __restrict__ valid, int R,
+                       const int* __restrict__ y0s,
+                       const int* __restrict__ x0s, int P, int PL,
                        float* __restrict__ out) {
     __shared__ float s_wx[CH][4];
     __shared__ float s_wy[CH][4];
@@ -77,22 +92,30 @@ descriptor_loop_kernel(const float* __restrict__ blur, int L, int H, int W,
     const float inv_sbp = 1.0f / sbp;
     const float crsbp = cosf(ang) * inv_sbp;
     const float srsbp = sinf(ang) * inv_sbp;
-    const int lv = clampi(levels[k], 0, L - 1);
-    const float* img = blur + (size_t)lv * H * W;
-
-    // static window of the twin: origin (py0, px0), side P
-    const int P = 2 * R + 1;
     const int xr = __float2int_rn(x);
     const int yr = __float2int_rn(y);
-    const int py0 = clampi(yr - R, 0, max(H, P) - P);
-    const int px0 = clampi(xr - R, 0, max(W, P) - P);
+    const float* img;
+    int py0, px0;
+    if (PATCH) {
+        // the job's own pre-cut window: origin (py0, px0), P rows x PL cols
+        img = src + (size_t)k * P * PL;
+        py0 = y0s[k];
+        px0 = x0s[k];
+    } else {
+        // static window of the twin: origin (py0, px0), side P = PL
+        const int lv = clampi(levels[k], 0, L - 1);
+        img = src + (size_t)lv * H * W;
+        P = PL = 2 * R + 1;
+        py0 = clampi(yr - R, 0, max(H, P) - P);
+        px0 = clampi(xr - R, 0, max(W, P) - P);
+    }
     // the job's support, intersected with the window and with the scan
     // bounds [1, W-2] x [1, H-2]; (i, j) are window-local coordinates
     const int s = (int)ceilf(SUPPORT_F * sbp) + 2;
     const int i_lo = max(max(0, yr - s - py0), 1 - py0);
     const int i_hi = min(min(P - 1, yr + s - py0), H - 2 - py0);
     const int j_lo = max(max(0, xr - s - px0), 1 - px0);
-    const int j_hi = min(min(P - 1, xr + s - px0), W - 2 - px0);
+    const int j_hi = min(min(PL - 1, xr + s - px0), W - 2 - px0);
     const int ncol = j_hi - j_lo + 1;
     const int npix = (i_hi >= i_lo && ncol > 0) ? (i_hi - i_lo + 1) * ncol : 0;
 
@@ -111,20 +134,31 @@ descriptor_loop_kernel(const float* __restrict__ blur, int L, int H, int W,
             if (p < npix) {
                 const int i = i_lo + p / ncol;
                 const int j = j_lo + p - (p / ncol) * ncol;
-                // window cell (ii, jj) holds img[min(py0+ii, H-1),
-                // min(px0+jj, W-1)]; neighbours wrap inside the window
-                const int ju = (j + 1 == P) ? 0 : j + 1;
-                const int jd = (j == 0) ? P - 1 : j - 1;
-                const int iu = (i + 1 == P) ? 0 : i + 1;
-                const int id = (i == 0) ? P - 1 : i - 1;
                 const int yy = py0 + i;
                 const int xx = px0 + j;
-                const float* row = img + (size_t)min(yy, H - 1) * W;
-                const float gx = row[min(px0 + ju, W - 1)]
-                               - row[min(px0 + jd, W - 1)];
-                const float gy =
-                    img[(size_t)min(py0 + iu, H - 1) * W + min(xx, W - 1)]
-                    - img[(size_t)min(py0 + id, H - 1) * W + min(xx, W - 1)];
+                float gx, gy;
+                if (PATCH) {
+                    // patch cell (i, j); zeros beyond the patch edge
+                    const float* row = img + (size_t)i * PL;
+                    gx = (j + 1 < PL ? row[j + 1] : 0.f)
+                       - (j > 0 ? row[j - 1] : 0.f);
+                    gy = (i + 1 < P ? row[j + PL] : 0.f)
+                       - (i > 0 ? row[j - PL] : 0.f);
+                } else {
+                    // window cell (ii, jj) holds img[min(py0+ii, H-1),
+                    // min(px0+jj, W-1)]; neighbours wrap inside the window
+                    const int ju = (j + 1 == P) ? 0 : j + 1;
+                    const int jd = (j == 0) ? P - 1 : j - 1;
+                    const int iu = (i + 1 == P) ? 0 : i + 1;
+                    const int id = (i == 0) ? P - 1 : i - 1;
+                    const float* row = img + (size_t)min(yy, H - 1) * W;
+                    gx = row[min(px0 + ju, W - 1)]
+                       - row[min(px0 + jd, W - 1)];
+                    gy = img[(size_t)min(py0 + iu, H - 1) * W
+                             + min(xx, W - 1)]
+                       - img[(size_t)min(py0 + id, H - 1) * W
+                             + min(xx, W - 1)];
+                }
                 const float mod = sqrtf(gx * gx + gy * gy);
                 const float th = atan2f(gy, gx);
                 const float fdx = (float)xx - x;
@@ -182,7 +216,24 @@ extern "C" int ps_descriptor_loop(const float* blur, int L, int H, int W,
                                   const float* ang, const uint8_t* valid,
                                   int n, int radius, float* out,
                                   void* stream) {
-    descriptor_loop_kernel<<<n, NT, 0, (cudaStream_t)stream>>>(
-        blur, L, H, W, x, y, sigma, level, ang, valid, radius, out);
+    descriptor_loop_kernel<false><<<n, NT, 0, (cudaStream_t)stream>>>(
+        blur, L, H, W, x, y, sigma, level, ang, valid, radius, nullptr,
+        nullptr, 0, 0, out);
+    return (int)cudaGetLastError();
+}
+
+// patches f32[n.., P, PL]; y0, x0 i32: image coordinates of each patch's
+// cell (0, 0); (H, W): the octave's dims for the scan-bounds test.
+extern "C" int ps_descriptor_loop_patches(const float* patches, int P, int PL,
+                                          int H, int W, const int* y0,
+                                          const int* x0, const float* x,
+                                          const float* y, const float* sigma,
+                                          const float* ang,
+                                          const uint8_t* valid, int n,
+                                          float* out, void* stream) {
+    if (P < 1 || PL < 1) return (int)cudaErrorInvalidValue;
+    descriptor_loop_kernel<true><<<n, NT, 0, (cudaStream_t)stream>>>(
+        patches, 0, H, W, x, y, sigma, nullptr, ang, valid, 0, y0, x0, P, PL,
+        out);
     return (int)cudaGetLastError();
 }

@@ -1,8 +1,8 @@
 // K2: 5-step sub-pixel refinement of DoG extremum candidates.
 //
-// Replaces: popsift_tpu/ops/pallas/refine.py:refine_windows_pallas, and the
-// window copy (popsift_tpu/ops/pallas/window.py:extract_windows_pallas) that
-// the TPU path needed to bring each candidate's [D, 11, 11] window into VMEM.
+// Replaces: popsift_tpu/ops/pallas/refine.py:refine_windows_pallas, the fused
+// window read + refinement of the TPU path. (The separate window copy of the
+// unfused route, pallas/window.py:extract_windows_pallas, is K6, window.cu.)
 //
 // What bounds it on the H100: latency. A candidate touches 27 floats per
 // step for at most 5 steps, and an octave has at most a few thousand live

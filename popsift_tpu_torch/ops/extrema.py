@@ -11,6 +11,11 @@ Port of :mod:`popsift_tpu.ops.extrema` (default, dense-stack path):
 * the 5-step refinement runs as kernel K2 (ops/kernels/refine.py) on the
   dense DoG stack, one thread per candidate;
 * the accept tests (:func:`finalize_refined`) run once over all octaves;
+* the patch-window route (the JAX package's default on a TPU): with
+  ``windows=True`` the collection also copies every candidate's
+  [D, 11, 11] DoG window (kernel K6, ops/kernels/window.py), and
+  :func:`refine_patches` refines the merged windows of all octaves in
+  one batch of plain tensor math, as JAX's ``refine_candidates`` does;
 * :func:`collect_refined_batched` is the frame-batched form: one mask
   and one refine launch per octave for F frames' stacks laid back to
   back on the layer axis, the compaction per frame.
@@ -28,10 +33,17 @@ from ..utils.f32 import div
 from .kernels.extrema_mask import (candidate_mask, candidate_mask_batched,
                                    candidate_mask_batched_torch,
                                    candidate_mask_torch)
-from .kernels.refine import (refine_state, refine_state_batched,
+from .kernels.refine import (MAX_ITERATIONS, NOUT, refine_loop,
+                             refine_state, refine_state_batched,
                              refine_state_batched_torch, refine_state_torch)
+from .kernels.window import (extract_windows, extract_windows_batched,
+                             extract_windows_batched_torch,
+                             extract_windows_torch)
 
 _B = 128   # compaction block width (the TPU lane count)
+# refinement window: 4 moves + 1 derivative halo each side, P = 2R + 1
+WINDOW_RADIUS = MAX_ITERATIONS
+WINDOW_SIDE = 2 * WINDOW_RADIUS + 1
 
 
 class OctaveExtrema(NamedTuple):
@@ -50,8 +62,9 @@ class OctaveExtrema(NamedTuple):
 
 
 class CandidateSet(NamedTuple):
-    """Compacted candidates of one octave (no patches: K2 reads the DoG
-    stack itself)."""
+    """Compacted candidates of one octave. ``patches`` is None on the
+    fused route (K2 reads the DoG stack itself) and holds the refinement
+    windows when the collection was asked for them."""
 
     x0: torch.Tensor       # i64[K] column
     y0: torch.Tensor       # i64[K] row
@@ -59,6 +72,7 @@ class CandidateSet(NamedTuple):
     valid: torch.Tensor    # bool[K] ([F, K] batched)
     n_found: torch.Tensor  # i64[] ([F] batched)
     n_dropped: torch.Tensor  # i64[] ([F] batched)
+    patches: torch.Tensor | None = None   # f32[K, D, P, P], P = 11
 
 
 class RefinedSet(NamedTuple):
@@ -163,28 +177,41 @@ def _compact_mask(flat: torch.Tensor, capacity: int, block_k: int = 0):
 
 
 def collect_candidates(dog: torch.Tensor, cfg: SiftConfig,
-                       capacity: int, plain: bool = False) -> CandidateSet:
-    """Mask (K1) + compaction for one octave's f32[D, H, W] DoG stack."""
+                       capacity: int, plain: bool = False,
+                       windows: bool = False) -> CandidateSet:
+    """Mask (K1) + compaction for one octave's f32[D, H, W] DoG stack.
+    With ``windows`` also every candidate's [D, 11, 11] window (K6, or
+    its plain version with ``plain``), centred on the candidate with
+    edge replication, as popsift_tpu.ops.extrema.collect_candidates
+    cuts them (:371-388); the count stays on the device."""
     _, H, W = dog.shape
     mask = _candidate_mask(dog, cfg, plain)
     idx, n_found, n_dropped = _compact_mask(
         mask.reshape(-1), capacity, block_k=cfg.compact_block_k)
     valid = torch.arange(capacity, device=dog.device) < n_found
-    return CandidateSet(x0=idx % W, y0=(idx % (H * W)) // W,
-                        z0=idx // (H * W) + 1, valid=valid,
-                        n_found=n_found, n_dropped=n_dropped)
+    x0, y0 = idx % W, (idx % (H * W)) // W
+    patches = None
+    if windows:
+        fn = extract_windows_torch if plain else extract_windows
+        patches = fn(dog, y0, x0, n_found, WINDOW_RADIUS, WINDOW_SIDE,
+                     WINDOW_SIDE)
+    return CandidateSet(x0=x0, y0=y0, z0=idx // (H * W) + 1, valid=valid,
+                        n_found=n_found, n_dropped=n_dropped,
+                        patches=patches)
 
 
 def collect_candidates_batched(dog: torch.Tensor, F: int, cfg: SiftConfig,
-                               capacity: int,
-                               plain: bool = False) -> CandidateSet:
+                               capacity: int, plain: bool = False,
+                               windows: bool = False) -> CandidateSet:
     """Mask (K1's batched entry, or its plain version with ``plain``) and
     per-frame compaction of one octave for F frames, port of
     popsift_tpu.ops.extrema.collect_candidates_batched (:394-448) on
     dense stacks: ``dog`` is f32[F*D, H, W], frame f's D =
     total_levels-1 layers at [f*D, f*D + D). Row arrays are [F*capacity]
     frame-major with frame-local z; ``valid`` is [F, capacity] and the
-    counts are [F]."""
+    counts are [F]. With ``windows`` also the [F*capacity, D, 11, 11]
+    windows (K6's batched entry), frame f's cut from its own D layers
+    only (JAX's per-job layer base ``zbase``, :437-445)."""
     FD, H, W = dog.shape
     if FD != F * (cfg.total_levels - 1):
         raise ValueError(f"collect_candidates_batched: {FD} layers for {F} "
@@ -197,11 +224,19 @@ def collect_candidates_batched(dog: torch.Tensor, F: int, cfg: SiftConfig,
                           block_k=cfg.compact_block_k) for f in range(F)]
     idx = torch.stack([c[0] for c in comp]).reshape(-1)
     n_found = torch.stack([c[1] for c in comp])
+    x0, y0 = idx % W, (idx % (H * W)) // W
+    patches = None
+    if windows:
+        fn = extract_windows_batched_torch if plain \
+            else extract_windows_batched
+        patches = fn(dog, y0, x0, n_found, F, WINDOW_RADIUS, WINDOW_SIDE,
+                     WINDOW_SIDE)
     return CandidateSet(
-        x0=idx % W, y0=(idx % (H * W)) // W, z0=idx // (H * W) + 1,
+        x0=x0, y0=y0, z0=idx // (H * W) + 1,
         valid=torch.arange(capacity, device=dog.device)[None, :]
         < n_found[:, None],
-        n_found=n_found, n_dropped=torch.stack([c[2] for c in comp]))
+        n_found=n_found, n_dropped=torch.stack([c[2] for c in comp]),
+        patches=patches)
 
 
 def collect_refined_batched(dog: torch.Tensor, F: int, cfg: SiftConfig,
@@ -229,6 +264,48 @@ def refine_candidates(dog: torch.Tensor, cand: CandidateSet,
     return fn(dog, cand.x0, cand.y0, cand.z0, int(cand.n_found),
                         maxlevel=cfg.total_levels - 1,
                         vlfeat=cfg.sift_mode == "vlfeat")
+
+
+def refine_patches(patches: torch.Tensor, x0: torch.Tensor,
+                   y0: torch.Tensor, z0: torch.Tensor, valid: torch.Tensor,
+                   cfg: SiftConfig, oct_w, oct_h) -> torch.Tensor:
+    """f32[K, 16] refinement state of K candidates from their pre-cut
+    windows ``patches`` f32[K, D, P, P] (window centre = the candidate's
+    start position), port of popsift_tpu.ops.extrema.refine_candidates
+    (:604-731) up to the state that :func:`finalize_refined` takes. The
+    rows may come from many octaves: ``oct_w``/``oct_h`` are ints or
+    per-row tensors. Plain tensor math, as it is plain XLA in JAX.
+
+    The 27 neighbours are index gathers from the window, not JAX's
+    one-hot sums (:626-650, a form for the TPU's vector unit): a gather
+    of one element is exact, so the values are the same. The loop is
+    :func:`..kernels.refine.refine_loop`, shared with K2's plain version,
+    so this route and the fused one round alike. Rows that are not
+    ``valid`` are zeros, as K2 leaves them."""
+    K, D, P, _ = patches.shape
+    R = (P - 1) // 2
+    dev = patches.device
+    flat = patches.reshape(K, D * P * P)
+    x0, y0, z0 = x0.long(), y0.long(), z0.long()
+    W = torch.as_tensor(oct_w, device=dev).long()
+    H = torch.as_tensor(oct_h, device=dev).long()
+    ar3 = torch.arange(3, device=dev) - 1
+
+    def neighbourhood(nz, ny, nx):
+        zi = (nz[:, None] + ar3).clamp(0, D - 1)
+        yi = (ny - y0)[:, None] + (R + ar3)
+        xi = (nx - x0)[:, None] + (R + ar3)
+        idx = (zi[:, :, None, None] * P + yi[:, None, :, None]) * P \
+            + xi[:, None, None, :]
+        return torch.gather(flat, 1, idx.reshape(K, 27)).view(K, 3, 3, 3)
+
+    cols = refine_loop(neighbourhood, x0, y0, z0, W, H,
+                       maxlevel=cfg.total_levels - 1,
+                       vlfeat=cfg.sift_mode == "vlfeat")
+    out = torch.zeros((K, NOUT), dtype=torch.float32, device=dev)
+    out[:, :len(cols)] = torch.stack(cols, dim=1)
+    return torch.where(valid.reshape(-1)[:, None], out,
+                       torch.zeros_like(out))
 
 
 def finalize_refined(state: torch.Tensor, cand_valid: torch.Tensor,

@@ -4,10 +4,13 @@ Each module holds one kernel's wrappers, their plain PyTorch versions
 and a ``launches`` counter per entry (a frame-batched entry counts on
 its own, ``launches_batched``). A wrapper given CPU tensors runs the
 plain version; given CUDA tensors it launches the kernel (adding one to
-its counter) or raises. There is no other switch between the two.
+its counter) or raises. There is no other switch between the two. The
+bucketed entries of K3 and K4 add no kernel of their own: each counts the
+calls in which it launched the kernel beneath it.
 """
 
-from . import blur_dog, desc, extrema_mask, orient, refine
+from . import (blur_chain, blur_dog, desc, extrema_mask, orient, refine,
+               window)
 
 # entry name -> (module, counter attribute, file:line of the TPU kernel)
 ENTRIES = {
@@ -20,6 +23,14 @@ ENTRIES = {
                                 extrema_mask.REPLACES_BATCHED),
     refine.NAME_BATCHED: (refine, "launches_batched",
                           refine.REPLACES_BATCHED),
+    window.NAME: (window, "launches", window.REPLACES),
+    window.NAME_BATCHED: (window, "launches_batched",
+                          window.REPLACES_BATCHED),
+    blur_chain.NAME: (blur_chain, "launches", blur_chain.REPLACES),
+    desc.NAME_PATCHES: (desc, "launches_patches", desc.REPLACES_PATCHES),
+    orient.NAME_BUCKETED: (orient, "launches_bucketed",
+                           orient.REPLACES_BUCKETED),
+    desc.NAME_BUCKETED: (desc, "launches_bucketed", desc.REPLACES_BUCKETED),
 }
 
 

@@ -3,8 +3,10 @@ library with a plain C interface, loaded with ctypes.
 
 ``nvcc`` runs at first use, never at import: the library is cached in
 ``popsift_tpu_torch/_build/`` under a hash of the sources and flags, so
-it is rebuilt only when a kernel source changes. No PyTorch headers are
-involved, which keeps a cold build to seconds.
+it is rebuilt only when a kernel source changes. Every source compiles
+to its own object in its own ``nvcc`` process, all started together, and
+one more ``nvcc`` links them. No PyTorch headers are involved, which
+keeps a cold build to seconds.
 
 Flags: ``sm_90a`` (Hopper), ``-O3`` and ``-fmad=false``. The last stops
 nvcc from contracting ``a*b + c`` into one fused multiply-add, so the
@@ -32,8 +34,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+              "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
@@ -43,6 +46,21 @@ _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LL = ctypes.c_longlong
 # C signatures (see the extern "C" functions in csrc/*.cu)
 _SIGNATURES = {
+    # src, src_stride, blur, blur_stride, blur_lstride, dog, dog_stride,
+    # dog_lstride, N, H, W, taps, spans, n, stream
+    "ps_blur_chain": (_VP, _LL, _VP, _LL, _LL, _VP, _LL, _LL, _I, _I, _I,
+                      _VP, _VP, _I, _VP),
+    # H, W, Scum -> tile side (0: the halo does not fit)
+    "ps_blur_chain_tile": (_I, _I, _I),
+    # vol, cy, cx, n_valid, K, D, H, W, radius, rows, cols, out, stream
+    "ps_extract_windows": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I,
+                           _VP, _VP),
+    # vol, cy, cx, n_found, F, cap, D, H, W, radius, rows, cols, out, stream
+    "ps_extract_windows_batched": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
+                                   _I, _I, _I, _VP, _VP),
+    # patches, P, PL, H, W, y0, x0, x, y, sigma, ang, valid, n, out, stream
+    "ps_descriptor_loop_patches": (_VP, _I, _I, _I, _I, _VP, _VP, _VP, _VP,
+                                   _VP, _VP, _VP, _I, _VP, _VP),
     # src, src_stride, blur, blur_stride, dog, dog_stride, N, H, W, taps,
     # S, stream
     "ps_blur_dog": (_VP, _LL, _VP, _LL, _VP, _LL, _I, _I, _I, _VP, _I, _VP),
@@ -90,6 +108,19 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_together(cmds: list) -> None:
+    """Start every command at once and wait for all; raise with the
+    output of the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    texts = [p.communicate()[0] for p in procs]
+    for cmd, proc, text in zip(cmds, procs, texts):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{text}")
+
+
 def library_path() -> str:
     """Path of the built library, running nvcc if it is not cached."""
     global build_seconds
@@ -97,19 +128,19 @@ def library_path() -> str:
     out = os.path.join(BUILD_DIR, f"libpopsift_kernels_{_digest()}.so")
     if os.path.exists(out):
         return out
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    nvcc = find_nvcc()
+    tmp = tempfile.mkdtemp(dir=BUILD_DIR)
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        os.replace(tmp, out)     # atomic: concurrent builders agree
+        objs = [os.path.join(tmp, os.path.basename(src) + ".o")
+                for src in sources()]
+        _run_together([[nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+                       for src, obj in zip(sources(), objs)])
+        lib = os.path.join(tmp, "lib.so")
+        _run_together([[nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)     # atomic: concurrent builds agree
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(tmp, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
     return out
 

@@ -8,6 +8,14 @@ floor(d^2) <= r^2 add |grad| * exp(floor(d^2) * -0.5 / (sw^2 + 1e-30))
 (sw = 1.5 sigma) to bin round(36 (theta + pi) / 2pi) mod 36
 (s_orientation.cu:96-134). Rows that are not valid, and rows at or past
 ``n``, are zero.
+
+:func:`orientation_hist_bucketed` replaces
+``orientation_hist_pallas_bucketed`` (orient.py:251): rows with
+``sigma <= sigma_split`` in one K3 launch, the rest in another, gathered
+back in row order. K3 walks each keypoint's own window, so the buckets
+change no block's work, only which launch holds it; the static radii
+bound the plain version's window. The extraction path launches K3 once
+per octave and does not call it.
 """
 
 from __future__ import annotations
@@ -24,7 +32,10 @@ from . import build
 NAME = "orientation_hist"
 SOURCE = "popsift_tpu_torch/csrc/orient.cu"
 REPLACES = "popsift_tpu/ops/pallas/orient.py:183"
+NAME_BUCKETED = "orientation_hist_bucketed"
+REPLACES_BUCKETED = "popsift_tpu/ops/pallas/orient.py:251"
 launches = 0
+launches_bucketed = 0    # bucketed calls that reached K3 on a CUDA device
 # f32 constants of the JAX code (np.float32(math.pi), np.float32(2 pi))
 _PI = float(np.float32(math.pi))
 _TWO_PI = float(np.float32(2.0 * math.pi))
@@ -130,4 +141,32 @@ def orientation_hist(blur, x, y, sigma, level, valid, n: int,
         out.data_ptr(), build.stream_of(blur))
     build.check(rc, NAME)
     launches += 1
+    return out
+
+
+def orientation_hist_bucketed(blur, x, y, sigma, level, valid, radius: int,
+                              sigma_split: float, radius_small: int,
+                              plain: bool = False) -> torch.Tensor:
+    """Radius-bucketed form of :func:`orientation_hist`
+    (popsift_tpu/ops/pallas/orient.py:251-289): valid rows with
+    ``sigma <= sigma_split`` go through one launch (window bound
+    ``radius_small``), the other valid rows through a second (``radius``),
+    each packed to the front in row order (nonzero); the histograms are
+    scattered back and invalid rows are zero. ``plain`` runs K3's plain
+    version per bucket."""
+    global launches_bucketed
+    K = x.shape[0]
+    out = torch.zeros((K, ORI_NBINS), dtype=torch.float32,
+                      device=blur.device)
+    valid = valid.bool()
+    small = valid & (sigma <= sigma_split)
+    before = launches
+    fn = orientation_hist_torch if plain else orientation_hist
+    for m, rad in ((small, radius_small), (valid & ~small, radius)):
+        rows = m.nonzero().squeeze(1)
+        n = rows.numel()
+        if n:
+            out[rows] = fn(blur, x[rows], y[rows], sigma[rows], level[rows],
+                           valid[rows], n, rad)
+    launches_bucketed += 1 if launches > before else 0
     return out

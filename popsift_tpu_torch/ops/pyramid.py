@@ -8,7 +8,11 @@ DoG layers, stored in 0..255 scale:
   form of (2x upsample -> dd[0] horizontal -> inc[0] vertical);
 * levels 1..L-1 by incremental separable blur with edge-replicated
   borders, each with its DoG, DoG[l-1] = blur[l] - blur[l-1], in one
-  call of kernel K5 (ops/kernels/blur_dog.py) per level for all frames;
+  call of kernel K5 (ops/kernels/blur_dog.py) per level for all frames
+  (``front="level"``, the default), or in one call of kernel K7
+  (ops/kernels/blur_chain.py) per group of three levels
+  (``front="chain"``, the JAX package's ``use_pallas="chain"``); both
+  give the same planes bit for bit;
 * octave o>0 level 0 picks every second pixel of level L-3 of the
   previous octave.
 
@@ -37,9 +41,13 @@ import numpy as np
 import torch
 
 from ..config import SiftConfig
+from ..gauss import GaussTables, build_gauss_tables, full_kernel
 from ..utils.f32 import div
+from .kernels.blur_chain import blur_chain, blur_chain_torch
 from .kernels.blur_dog import _pad_edge, blur_dog, blur_dog_torch
-from popsift_tpu.gauss import GaussTables, build_gauss_tables, full_kernel
+
+FRONTS = ("level", "chain")
+CHAIN_GROUP = 3    # levels fused per K7 launch, as the JAX front's group=3
 
 
 @dataclass(frozen=True)
@@ -62,7 +70,7 @@ class PyramidPlan:
 def build_pyramid_plan(config: SiftConfig, height: int, width: int,
                        tables: GaussTables | None = None) -> PyramidPlan:
     """Same plan, tap for tap, as popsift_tpu.ops.pyramid.build_pyramid_plan
-    (both read the shared :mod:`popsift_tpu.gauss` tables)."""
+    (the port's :mod:`..gauss` is a copy of the JAX package's tables)."""
     if tables is None:
         tables = build_gauss_tables(config)
     if (config.sift_mode in ("popsift", "vlfeat")
@@ -169,13 +177,16 @@ def _octave0_level0(img: torch.Tensor, plan: PyramidPlan) -> torch.Tensor:
 
 
 def build_pyramid_frames(imgs: torch.Tensor, plan: PyramidPlan,
-                         plain: bool = False):
+                         plain: bool = False, front: str = "level"):
     """Pyramids of F same-sized frames, ``imgs`` [F, H, W] uint8 (or
     [0, 1] float32). Returns (blurs, dogs): tuples over octaves of
-    f32[F, L, H, W] and f32[F, L-1, H, W] on the images' device. Each
-    level runs K5 once for all F frames (its plain version with
-    ``plain``)."""
+    f32[F, L, H, W] and f32[F, L-1, H, W] on the images' device. With
+    ``front="level"`` each level runs K5 once for all F frames, with
+    ``front="chain"`` each group of three levels runs K7 once (their
+    plain versions with ``plain``)."""
     cfg = plan.config
+    if front not in FRONTS:
+        raise ValueError(f"front must be one of {FRONTS}, got {front!r}")
     if cfg.scaling_mode == "direct":
         raise NotImplementedError("direct scaling (ROADMAP A9)")
     if cfg.gauss_mode in ("fixed9", "fixed15", "vlfeat-relative-all"):
@@ -185,6 +196,7 @@ def build_pyramid_frames(imgs: torch.Tensor, plan: PyramidPlan,
         raise NotImplementedError(
             f"downscale mode {cfg.downscale_mode!r} (ROADMAP A9)")
     blur_level = blur_dog_torch if plain else blur_dog
+    chain = blur_chain_torch if plain else blur_chain
     F = imgs.shape[0]
     total = cfg.total_levels
     blurs, dogs = [], []
@@ -200,9 +212,15 @@ def build_pyramid_frames(imgs: torch.Tensor, plan: PyramidPlan,
         else:
             # pick every second pixel (get_by_2_pick_every_second)
             levels[:, 0] = prev[:, 0::2, 0::2][:, :oh, :ow]
-        for lvl in range(1, total):
-            blur_level(levels[:, lvl - 1], plan.inc_kernels[lvl],
-                       out=(levels[:, lvl], dog[:, lvl - 1]))
+        if front == "chain":
+            for l0 in range(1, total, CHAIN_GROUP):
+                l1 = min(total, l0 + CHAIN_GROUP)
+                chain(levels[:, l0 - 1], plan.inc_kernels[l0:l1],
+                      out=(levels[:, l0:l1], dog[:, l0 - 1:l1 - 1]))
+        else:
+            for lvl in range(1, total):
+                blur_level(levels[:, lvl - 1], plan.inc_kernels[lvl],
+                           out=(levels[:, lvl], dog[:, lvl - 1]))
         blurs.append(levels)
         dogs.append(dog)
         prev = levels[:, total - 3]
@@ -210,9 +228,9 @@ def build_pyramid_frames(imgs: torch.Tensor, plan: PyramidPlan,
 
 
 def build_pyramid(img: torch.Tensor, plan: PyramidPlan,
-                  plain: bool = False):
+                  plain: bool = False, front: str = "level"):
     """Full pyramid of a [H, W] uint8 (or [0, 1] float32) image tensor.
     Returns (blurs, dogs): tuples over octaves of f32[L, H, W] and
     f32[L-1, H, W] on the image's device."""
-    blurs, dogs = build_pyramid_frames(img[None], plan, plain)
+    blurs, dogs = build_pyramid_frames(img[None], plan, plain, front)
     return tuple(b[0] for b in blurs), tuple(d[0] for d in dogs)

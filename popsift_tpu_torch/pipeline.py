@@ -21,6 +21,16 @@ output gains a leading [F] axis. ``extract_batch`` of one frame equals
 so the single-frame path keeps its own stages (PERF.md §6).
 :func:`calibrate_plan` sizes per-octave capacities from a detect-only
 probe (pipeline.py:787-831).
+
+Two keywords choose between the JAX package's routes. ``detect="fused"``
+(the default; JAX's ``POPSIFT_TPU_FUSED_REFINE=1``) refines with K2
+straight from the DoG stack, once per octave. ``detect="windows"`` is
+the JAX package's default route (pipeline.py:233-276): per octave the
+collection also copies each candidate's DoG window (K6), then ONE
+``refine_patches`` runs over the merged windows of all octaves.
+``front="level"`` (the default) blurs with K5 once per level,
+``front="chain"`` with K7 once per group of levels (JAX's
+``use_pallas="chain"``). Both routes give the same features.
 """
 
 from __future__ import annotations
@@ -92,24 +102,32 @@ def build_extract_plan(config: SiftConfig, height: int, width: int,
                        job_caps=tuple(job_caps))
 
 
-def _check_supported(cfg: SiftConfig) -> None:
+DETECT_ROUTES = ("fused", "windows")
+
+
+def _check_supported(cfg: SiftConfig, detect: str = "fused") -> None:
+    if detect not in DETECT_ROUTES:
+        raise ValueError(f"detect must be one of {DETECT_ROUTES}, "
+                         f"got {detect!r}")
     if cfg.filter_max_extrema > 0:
         raise NotImplementedError("grid filter (ROADMAP A4)")
     if cfg.desc_mode != "loop":
         raise NotImplementedError(f"desc_mode {cfg.desc_mode!r} (ROADMAP A9)")
 
 
-def extract(img, plan: ExtractPlan, device, *,
-            plain: bool = False) -> SiftFeatures:
+def extract(img, plan: ExtractPlan, device, *, plain: bool = False,
+            detect: str = "fused", front: str = "level") -> SiftFeatures:
     """Run the full pipeline on one [H, W] uint8 (or [0, 1] float32)
-    image, given as a numpy array or tensor, on ``device``.
+    image, given as a numpy array or tensor, on ``device``. ``detect``
+    and ``front`` choose the detection route and the pyramid front (see
+    the module docstring).
 
     On a CUDA device every kernel stage runs its CUDA kernel. ``plain``
     runs every stage's plain PyTorch version instead, on the same device:
     the baseline the kernels are timed against. It is never chosen on
     its own."""
     cfg = plan.config
-    _check_supported(cfg)
+    _check_supported(cfg, detect)
     dev = resolve_device(device)
     img = torch.as_tensor(np.asarray(img)).to(dev)
     if tuple(img.shape) != (plan.height, plan.width):
@@ -119,15 +137,12 @@ def extract(img, plan: ExtractPlan, device, *,
     dims = plan.pyramid.dims
     offs = np.concatenate([[0], np.cumsum(caps)]).astype(int)
 
-    blurs, dogs = build_pyramid(img, plan.pyramid, plain)
+    blurs, dogs = build_pyramid(img, plan.pyramid, plain, front)
 
-    # detection: mask + compaction + refinement per octave, one batched
-    # accept test over all octaves (each row carries its octave's dims)
-    cands = [_ext.collect_candidates(dog, cfg, caps[o], plain)
-             for o, dog in enumerate(dogs)]
-    n_found = [int(c.n_found) for c in cands]
-    state = torch.cat([_ext.refine_candidates(dogs[o], c, cfg, plain)
-                       for o, c in enumerate(cands)])
+    # detection: mask + compaction per octave, the refinement per octave
+    # (fused: K2 on the stack) or once over all octaves' windows, one
+    # batched accept test over all octaves (each row carries its
+    # octave's dims)
     octv_row = np.concatenate(
         [np.full(caps[o], o, np.int64) for o in range(len(caps))])
     w_row = torch.as_tensor(np.concatenate(
@@ -136,6 +151,20 @@ def extract(img, plan: ExtractPlan, device, *,
     h_row = torch.as_tensor(np.concatenate(
         [np.full(caps[o], oh, np.int64) for o, (oh, _) in enumerate(dims)]),
         device=dev)
+    cands = [_ext.collect_candidates(dog, cfg, caps[o], plain,
+                                     windows=detect == "windows")
+             for o, dog in enumerate(dogs)]
+    if detect == "windows":
+        n_found = torch.stack([c.n_found for c in cands]).tolist()
+        state = _ext.refine_patches(
+            torch.cat([c.patches for c in cands]),
+            torch.cat([c.x0 for c in cands]), torch.cat([c.y0 for c in cands]),
+            torch.cat([c.z0 for c in cands]),
+            torch.cat([c.valid for c in cands]), cfg, w_row, h_row)
+    else:
+        n_found = [int(c.n_found) for c in cands]
+        state = torch.cat([_ext.refine_candidates(dogs[o], c, cfg, plain)
+                           for o, c in enumerate(cands)])
     g = _ext.finalize_refined(
         state, torch.cat([c.valid for c in cands]), cfg, w_row, h_row,
         sum(n_found), torch.stack([c.n_dropped for c in cands]).sum())
@@ -209,14 +238,16 @@ def _live_rows(counts, cap: int, base: int = 0, stride: int = 0):
                            for f, c in enumerate(counts)]).astype(np.int64)
 
 
-def extract_batch(imgs, plan: ExtractPlan, device, *,
-                  plain: bool = False) -> SiftFeatures:
+def extract_batch(imgs, plan: ExtractPlan, device, *, plain: bool = False,
+                  detect: str = "fused",
+                  front: str = "level") -> SiftFeatures:
     """Run the pipeline on F same-sized frames at once, ``imgs`` [F, H, W]
     uint8 (or [0, 1] float32) as a numpy array or tensor, on ``device``.
     Every output gains a leading [F] axis; frame f's row equals
-    ``extract`` of that frame. ``plain`` as in :func:`extract`."""
+    ``extract`` of that frame. ``plain``, ``detect`` and ``front`` as in
+    :func:`extract`."""
     cfg = plan.config
-    _check_supported(cfg)
+    _check_supported(cfg, detect)
     dev = resolve_device(device)
     imgs = torch.as_tensor(np.asarray(imgs)).to(dev)
     if imgs.dim() != 3 or tuple(imgs.shape[1:]) != (plan.height, plan.width):
@@ -231,27 +262,46 @@ def extract_batch(imgs, plan: ExtractPlan, device, *,
     Ktot = int(offs[-1])
 
     # frames stacked on the layer axis: [F, L, H, W] -> [F*L, H, W]
-    blurs, dogs = build_pyramid_frames(imgs, plan.pyramid, plain)
+    blurs, dogs = build_pyramid_frames(imgs, plan.pyramid, plain, front)
     blurs = [b.view(F * L, *b.shape[2:]) for b in blurs]
     dogs = [d.view(F * (L - 1), *d.shape[2:]) for d in dogs]
 
-    # detection: one mask + one refine launch per octave for all frames,
-    # one accept test over all frames and octaves
-    cands = [_ext.collect_refined_batched(dogs[o], F, cfg, caps[o], plain)
-             for o in range(n_oct)]
-    n_found = torch.stack([c.n_found for c in cands]).tolist()  # [o][f]
-    vals = torch.cat([c.vals.view(F, caps[o], -1)
-                      for o, c in enumerate(cands)], 1).reshape(F * Ktot, -1)
+    # detection: one mask launch per octave for all frames, the
+    # refinement once per octave (fused: K2's batched entry) or once over
+    # all frames' and octaves' windows, one accept test over everything.
+    # Rows are frame-major: frame f's octaves back to back.
     octv_row = np.concatenate(
         [np.full(caps[o], o, np.int64) for o in range(n_oct)])
-    w_row = np.concatenate(
-        [np.full(caps[o], ow, np.int64) for o, (_, ow) in enumerate(dims)])
-    h_row = np.concatenate(
-        [np.full(caps[o], oh, np.int64) for o, (oh, _) in enumerate(dims)])
+    w_row = torch.as_tensor(np.tile(np.concatenate(
+        [np.full(caps[o], ow, np.int64) for o, (_, ow) in enumerate(dims)]),
+        F), device=dev)
+    h_row = torch.as_tensor(np.tile(np.concatenate(
+        [np.full(caps[o], oh, np.int64) for o, (oh, _) in enumerate(dims)]),
+        F), device=dev)
+
+    def frame_major(per_octave):
+        """[F*cap_o, ...] per octave -> [F*Ktot, ...]."""
+        return torch.cat([a.view(F, caps[o], *a.shape[1:])
+                          for o, a in enumerate(per_octave)], 1).flatten(0, 1)
+
+    if detect == "windows":
+        cands = [_ext.collect_candidates_batched(
+            dogs[o], F, cfg, caps[o], plain, windows=True)
+            for o in range(n_oct)]
+        valid_rows = torch.cat([c.valid for c in cands], 1).reshape(-1)
+        vals = _ext.refine_patches(
+            frame_major([c.patches for c in cands]),
+            frame_major([c.x0 for c in cands]),
+            frame_major([c.y0 for c in cands]),
+            frame_major([c.z0 for c in cands]), valid_rows, cfg, w_row, h_row)
+    else:
+        cands = [_ext.collect_refined_batched(dogs[o], F, cfg, caps[o], plain)
+                 for o in range(n_oct)]
+        valid_rows = torch.cat([c.valid for c in cands], 1).reshape(-1)
+        vals = frame_major([c.vals for c in cands])
+    n_found = torch.stack([c.n_found for c in cands]).tolist()  # [o][f]
     g = _ext.finalize_refined(
-        vals, torch.cat([c.valid for c in cands], 1).reshape(-1), cfg,
-        torch.as_tensor(np.tile(w_row, F), device=dev),
-        torch.as_tensor(np.tile(h_row, F), device=dev),
+        vals, valid_rows, cfg, w_row, h_row,
         int(np.sum(n_found)), torch.stack([c.n_dropped for c in cands]).sum())
 
     # orientation: per octave one K3 launch over all frames' live rows
@@ -353,18 +403,19 @@ def saturation_report(feats: SiftFeatures, plan: ExtractPlan) -> list:
     return warnings
 
 
-def make_probe_fn(plan: ExtractPlan, device):
+def make_probe_fn(plan: ExtractPlan, device, front: str = "level"):
     """Detect-only probe (pipeline.py:787-804): pyramid and the dense
     per-octave candidate collection (mask K1 on each octave's dense
-    stack, compaction), no refinement or later stage. The returned
-    function maps one image to its per-octave candidate counts, i64
-    numpy [n_octaves]."""
+    stack, compaction), no refinement or later stage, so of the two
+    route keywords only ``front`` applies. The returned function maps
+    one image to its per-octave candidate counts, i64 numpy
+    [n_octaves]."""
     cfg = plan.config
     dev = resolve_device(device)
 
     def probe(img) -> np.ndarray:
         img = torch.as_tensor(np.asarray(img)).to(dev)
-        _, dogs = build_pyramid(img, plan.pyramid)
+        _, dogs = build_pyramid(img, plan.pyramid, front=front)
         cands = [_ext.collect_candidates(dog, cfg, plan.ext_caps[o])
                  for o, dog in enumerate(dogs)]
         return torch.stack([c.n_found for c in cands]).cpu().numpy()
@@ -374,7 +425,8 @@ def make_probe_fn(plan: ExtractPlan, device):
 
 def calibrate_plan(config: SiftConfig, frames, height: int | None = None,
                    width: int | None = None, headroom: float = 1.5,
-                   probe_capacity: int = 8192, *, device) -> ExtractPlan:
+                   probe_capacity: int = 8192, *, device,
+                   front: str = "level") -> ExtractPlan:
     """Plan with per-octave capacities pinned from the candidate counts
     of representative ``frames`` on ``device``, as
     popsift_tpu.pipeline.calibrate_plan (:807-831) sizes them: the
@@ -385,7 +437,7 @@ def calibrate_plan(config: SiftConfig, frames, height: int | None = None,
         height, width = np.asarray(frames[0]).shape[-2:]
     probe_cfg = config.replace(extrema_capacity=probe_capacity)
     probe = make_probe_fn(build_extract_plan(probe_cfg, height, width),
-                          device)
+                          device, front)
     cand = np.zeros(len(config.octave_dims(width, height)), np.int64)
     for f in frames:
         cand = np.maximum(cand, probe(f))

@@ -1,3 +1,3 @@
 """Host-side runtime of the port: restartable batch jobs
-(:mod:`.batchjob`). The native decode pipeline is shared with the JAX
-package (:mod:`popsift_tpu.runtime.native`, which loads no jax)."""
+(:mod:`.batchjob`) and the native decode pipeline
+(:mod:`.native`, built from native/popsift_host.cpp by :mod:`.build`)."""

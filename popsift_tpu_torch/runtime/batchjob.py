@@ -1,18 +1,18 @@
 """Restartable batch extraction jobs on a PyTorch device.
 
 Port of :mod:`popsift_tpu.runtime.batchjob` with the device chosen
-explicitly. The crash-safe parts are the JAX package's own, shared
-(that module loads no jax): per-frame results written atomically as
-.npz, an append-only MANIFEST.jsonl whose torn last line is ignored, and
+explicitly. The crash-safe parts are the JAX job's, in this package's
+own copy: per-frame results written atomically as .npz, an append-only MANIFEST.jsonl whose torn last line is ignored, and
 re-runs that skip every frame already in the manifest. PGM/PPM frames
 decode on the native host pipeline's worker threads
-(:mod:`popsift_tpu.runtime.native`) ahead of extraction; up to ``batch``
+(:mod:`.native`) ahead of extraction; up to ``batch``
 consecutive same-shaped frames go through one ``enqueue_batch``.
 
 :meth:`BatchExtractJob.run` mirrors ``popsift_tpu.runtime.batchjob.
 BatchExtractJob.run`` line for line except for the ``PopSift``
 constructor, which takes the device: a change to the resume, grouping or
-manifest logic of either copy belongs in both.
+manifest logic of either copy belongs in both, so that the manifests
+and .npz files of the two jobs stay interchangeable.
 """
 
 from __future__ import annotations
@@ -20,12 +20,37 @@ from __future__ import annotations
 import collections
 import json
 import os
+import tempfile
 
 import numpy as np
 
-from popsift_tpu.runtime.batchjob import _atomic_write_npz, _load_manifest
-
 from ..config import SiftConfig
+
+
+def _atomic_write_npz(path: str, payload: dict):
+    d = os.path.dirname(path) or "."
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=".npz.tmp")
+    with os.fdopen(fd, "wb") as fh:
+        np.savez_compressed(fh, **payload)
+    os.replace(tmp, path)
+
+
+def _load_manifest(path: str) -> dict:
+    """Read MANIFEST.jsonl; skip a torn (crash-truncated) last line."""
+    done = {}
+    if not os.path.exists(path):
+        return done
+    with open(path) as fh:
+        for line in fh:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                rec = json.loads(line)
+            except json.JSONDecodeError:
+                continue       # torn tail from a crash mid-append
+            done[rec["frame"]] = rec
+    return done
 
 
 class _Ready:
@@ -68,7 +93,7 @@ class BatchExtractJob:
         done = _load_manifest(self.manifest_path)
         ps = PopSift(self.config, device=self.device)
         try:
-            from popsift_tpu.runtime import native
+            from . import native
             pipeline = native.HostPipeline(threads=2)
         except ImportError:
             pipeline = None
@@ -77,7 +102,7 @@ class BatchExtractJob:
             if pipeline is not None and path.lower().endswith(
                     (".pgm", ".ppm", ".pnm")):
                 return pipeline.submit(path)
-            from popsift_tpu.io.image import load_image
+            from ..io.image import load_image
             return _Ready(load_image(path))
 
         pending = [p for p in paths if p not in done]

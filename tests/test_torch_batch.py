@@ -37,7 +37,8 @@ from popsift_tpu_torch.ops import extrema as text
 from popsift_tpu_torch.ops.kernels import extrema_mask as K1
 from popsift_tpu_torch.ops.kernels import refine as K2
 from test_golden import _flatten_host
-from test_torch_pipeline import _assert_within_golden_tolerances
+from test_torch_pipeline import (_assert_within_golden_tolerances,
+                                 port_config)
 
 torch.set_num_threads(1)
 
@@ -73,7 +74,7 @@ def test_batched_mask_matches_pallas_interpret(mode):
     H, W, F = 64, 96, 2
     cfg = SiftConfig(sift_mode=mode)
     dogs = [_random_dog(H, W, seed=s) for s in (1, 4)]
-    thr1 = float(np.float32(text._first_threshold(cfg)))
+    thr1 = float(np.float32(text._first_threshold(port_config(cfg))))
     canv = jnp.concatenate([_canvas(d, H, W) for d in dogs], axis=0)
     want = np.asarray(candidate_mask_canvas_batched(canv, F, H, W, thr1,
                                                     interpret=True))
@@ -86,7 +87,7 @@ def test_batched_mask_matches_pallas_interpret(mode):
 
 def test_dense_mask_matches_pallas_interpret():
     dog = _random_dog(61, 77, seed=5)
-    thr1 = float(np.float32(text._first_threshold(SiftConfig())))
+    thr1 = float(np.float32(text._first_threshold(port_config(SiftConfig()))))
     want = np.asarray(candidate_mask_pallas(jnp.asarray(dog), thr1,
                                             interpret=True))
     got = K1.candidate_mask(torch.from_numpy(dog), thr1)
@@ -103,7 +104,7 @@ def test_batched_refine_matches_pallas_interpret(mode):
     rset = jext.collect_refined_batched(canv, F, cfg, cap, (H, W),
                                         interpret=True)
     got = text.collect_refined_batched(
-        torch.from_numpy(np.concatenate(dogs)), F, cfg, cap)
+        torch.from_numpy(np.concatenate(dogs)), F, port_config(cfg), cap)
     assert got.vals.shape == (F * cap, 16)
     assert np.array_equal(got.n_found.numpy(), np.asarray(rset.n_found))
     assert np.array_equal(got.n_dropped.numpy(), np.asarray(rset.n_dropped))
@@ -113,13 +114,15 @@ def test_batched_refine_matches_pallas_interpret(mode):
         ref = jext.finalize_refined(jvals[f], rset.valid[f], cfg, W, H,
                                     rset.n_found[f], rset.n_dropped[f])
         mine = text.finalize_refined(got.vals[f * cap:(f + 1) * cap],
-                                     got.valid[f], cfg, W, H,
+                                     got.valid[f], port_config(cfg), W, H,
                                      got.n_found[f], got.n_dropped[f])
         assert int(mine.count) > 0
         _assert_extrema_equal(mine, ref)
         # each frame equals the single-frame collection and refinement
-        one = text.collect_candidates(torch.from_numpy(dogs[f]), cfg, cap)
-        state = text.refine_candidates(torch.from_numpy(dogs[f]), one, cfg)
+        one = text.collect_candidates(torch.from_numpy(dogs[f]),
+                                      port_config(cfg), cap)
+        state = text.refine_candidates(torch.from_numpy(dogs[f]), one,
+                                       port_config(cfg))
         assert int(one.n_found) == int(got.n_found[f])
         assert torch.equal(state, got.vals[f * cap:(f + 1) * cap])
 
@@ -174,7 +177,7 @@ SEEDS = (7, 8, 9)
 def batch_runs():
     cfg = SiftConfig(octaves=4)
     frames = [synthetic_image(120, 160, seed=s) for s in SEEDS]
-    ps = tapi.PopSift(cfg, device="cpu")
+    ps = tapi.PopSift(port_config(cfg), device="cpu")
     jobs = ps.enqueue_batch(frames)
     single = [ps.enqueue(f) for f in frames]
     jax_hosts = [j.get() for j in JaxPopSift(cfg).enqueue_batch(frames)]
@@ -208,11 +211,13 @@ def test_calibrate_plan_matches_jax():
     cfg = SiftConfig(octaves=3)
     frames = [synthetic_image(64, 80, seed=s) for s in (3, 5)]
     want = jpipe.calibrate_plan(cfg, frames, headroom=1.25)
-    got = tpipe.calibrate_plan(cfg, frames, headroom=1.25, device="cpu")
+    got = tpipe.calibrate_plan(port_config(cfg), frames, headroom=1.25,
+                               device="cpu")
     assert got.ext_caps == want.ext_caps
     assert got.job_caps == want.job_caps
     probe = tpipe.make_probe_fn(
-        tpipe.build_extract_plan(cfg.replace(extrema_capacity=8192), 64, 80),
+        tpipe.build_extract_plan(
+            port_config(cfg.replace(extrema_capacity=8192)), 64, 80),
         "cpu")
     counts = np.maximum(probe(frames[0]), probe(frames[1]))
     assert counts.sum() > 0
@@ -222,14 +227,15 @@ def test_calibrate_plan_matches_jax():
 def test_popsift_calibrate_pins_the_plan():
     cfg = SiftConfig(octaves=3)
     frame = synthetic_image(64, 80, seed=3)
-    ps = tapi.PopSift(cfg, device="cpu")
+    ps = tapi.PopSift(port_config(cfg), device="cpu")
     plan = ps.calibrate([frame])
-    assert plan.ext_caps != tpipe.build_extract_plan(cfg, 64, 80).ext_caps
+    assert plan.ext_caps != tpipe.build_extract_plan(port_config(cfg), 64,
+                                                     80).ext_caps
     job = ps.enqueue(frame)
     assert job.raw.x.shape == (sum(plan.ext_caps),)
     assert job.raw.desc.shape == (sum(plan.job_caps), 128)
     host = job.get()
-    want = tapi.PopSift(cfg, device="cpu").enqueue(frame).get()
+    want = tapi.PopSift(port_config(cfg), device="cpu").enqueue(frame).get()
     assert host.getFeatureCount() == want.getFeatureCount() > 0
     assert np.array_equal(host.descriptors, want.descriptors)
     batch = ps.enqueue_batch([frame, frame])

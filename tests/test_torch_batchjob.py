@@ -16,6 +16,8 @@ from popsift_tpu.config import SiftConfig
 from popsift_tpu.runtime.batchjob import BatchExtractJob as JaxBatchJob
 from popsift_tpu_torch.cli import batch as batch_cli
 from popsift_tpu_torch.runtime.batchjob import BatchExtractJob
+from test_torch_pipeline import port_config
+from test_torch_pipeline import port_config
 
 torch.set_num_threads(1)
 CFG = SiftConfig(octaves=2, extrema_capacity=64)
@@ -42,9 +44,10 @@ def jobs(tmp_path_factory):
     d = tmp_path_factory.mktemp("frames")
     frames = _write_frames(str(d))
     port_out, jax_out, one_out = (str(d / n) for n in ("port", "jax", "one"))
-    stats = BatchExtractJob(port_out, CFG, batch=3, device="cpu").run(frames)
+    stats = BatchExtractJob(port_out, port_config(CFG), batch=3,
+                            device="cpu").run(frames)
     JaxBatchJob(jax_out, CFG, batch=3).run(frames)
-    BatchExtractJob(one_out, CFG, batch=1, device="cpu").run(frames)
+    BatchExtractJob(one_out, port_config(CFG), batch=1, device="cpu").run(frames)
     return frames, port_out, jax_out, one_out, stats
 
 
@@ -76,7 +79,8 @@ def test_batch_job_resumes_without_recompute(jobs):
     assert len(npzs) == 5
     mtimes = {f: os.path.getmtime(os.path.join(port_out, f)) for f in npzs}
     seen = []
-    stats = BatchExtractJob(port_out, CFG, batch=3, device="cpu").run(
+    stats = BatchExtractJob(port_out, port_config(CFG), batch=3,
+                            device="cpu").run(
         frames, on_frame=lambda p, feats: seen.append(p))
     assert stats == {"done": 0, "skipped": 5} and seen == []
     for f in npzs:

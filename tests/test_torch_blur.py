@@ -25,6 +25,7 @@ from popsift_tpu.ops.pyramid import _sep_blur as jax_sep_blur
 from popsift_tpu_torch.ops import kernels
 from popsift_tpu_torch.ops import pyramid as tpyr
 from popsift_tpu_torch.ops.kernels import blur_dog as K5
+from test_torch_pipeline import port_config
 
 torch.set_num_threads(1)
 
@@ -98,7 +99,7 @@ def _chain_pyramid(img, plan):
                                               (120, 160, 4, 7),
                                               (67, 93, -1, 1)])
 def test_pyramid_through_wrapper_is_exact(h, w, octaves, seed):
-    cfg = SiftConfig(octaves=octaves)
+    cfg = port_config(SiftConfig(octaves=octaves))
     plan = tpyr.build_pyramid_plan(cfg, h, w)
     img = torch.from_numpy(synthetic_image(h, w, seed=seed))
     wb, wd = _chain_pyramid(img, plan)
@@ -110,7 +111,7 @@ def test_pyramid_through_wrapper_is_exact(h, w, octaves, seed):
 
 
 def test_batched_pyramid_equals_each_frame():
-    cfg = SiftConfig(octaves=3)
+    cfg = port_config(SiftConfig(octaves=3))
     plan = tpyr.build_pyramid_plan(cfg, 48, 64)
     imgs = np.stack([synthetic_image(48, 64, seed=s) for s in range(3)])
     bb, bd = tpyr.build_pyramid_frames(torch.from_numpy(imgs), plan)

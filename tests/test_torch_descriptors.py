@@ -17,6 +17,7 @@ import torch
 from popsift_tpu.config import SiftConfig
 from popsift_tpu.ops import descriptors as jdesc
 from popsift_tpu_torch.ops import descriptors as tdesc
+from test_torch_pipeline import port_config
 
 torch.set_num_threads(1)
 
@@ -82,7 +83,8 @@ def test_loop_descriptors_match_xla(shape, seed):
         x=_t(x), y=_t(y), sigma=_t(sigma), level=_t(level), ang=_t(ang),
         kp_index=torch.zeros(n, dtype=torch.long), valid=_t(valid),
         count=count)
-    got = tdesc.compute_descriptors(torch.from_numpy(blur), tj, cfg).numpy()
+    got = tdesc.compute_descriptors(torch.from_numpy(blur), tj,
+                                    port_config(cfg)).numpy()
     rowmax = np.abs(want).max(1, keepdims=True)
     assert np.all(np.abs(got - want) <= 1e-5 * rowmax + 1e-30)
     assert np.all(got[count:] == 0) and np.all(got[5] == 0)
@@ -98,13 +100,14 @@ def test_normalisation_matches_jax(norm_mode, mult):
     d[0] = 0.0
     d[1, :5] = 500.0                         # L2 clamp at 0.2 binds
     want = np.asarray(jdesc.normalize_descriptors(jnp.asarray(d), cfg))
-    got = tdesc.normalize_descriptors(torch.from_numpy(d), cfg).numpy()
+    got = tdesc.normalize_descriptors(torch.from_numpy(d),
+                                      port_config(cfg)).numpy()
     scale = 2.0 ** mult
     np.testing.assert_allclose(got / scale, want / scale, rtol=0, atol=1e-6)
 
 
 def test_other_descriptor_modes_raise():
-    cfg = SiftConfig(desc_mode="igrid")
+    cfg = port_config(SiftConfig(desc_mode="igrid"))
     jobs = tdesc.DescriptorJobs(*(torch.zeros(1) for _ in range(7)), count=0)
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         tdesc.compute_descriptors(torch.zeros((6, 8, 8)), jobs, cfg)

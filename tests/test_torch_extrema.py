@@ -22,6 +22,7 @@ from popsift_tpu.config import SiftConfig
 from popsift_tpu.ops import extrema as jext
 from popsift_tpu.ops.pyramid import assemble_dog_canvas
 from popsift_tpu_torch.ops import extrema as text
+from test_torch_pipeline import port_config
 
 torch.set_num_threads(1)
 
@@ -42,7 +43,8 @@ def test_candidate_mask_exact(mode):
     dog = _random_dog(61, 77, seed=5)
     want = np.asarray(jext._candidate_mask(jnp.asarray(dog), cfg,
                                            use_pallas=False))
-    got = text._candidate_mask(torch.from_numpy(dog), cfg).numpy()
+    got = text._candidate_mask(torch.from_numpy(dog),
+                               port_config(cfg)).numpy()
     assert got.shape == want.shape and got.dtype == np.bool_
     assert want.sum() > 10
     assert np.array_equal(got, want)
@@ -98,6 +100,7 @@ def _assert_extrema_close(got, ref):
 
 def _port_refined(dog, cfg, cap):
     H, W = dog.shape[1:]
+    cfg = port_config(cfg)
     t = torch.from_numpy(dog)
     cand = text.collect_candidates(t, cfg, cap)
     state = text.refine_candidates(t, cand, cfg)
@@ -139,7 +142,7 @@ def test_refine_matches_pallas_interpret(mode):
 
 
 def test_refine_rows_past_count_are_zero():
-    cfg = SiftConfig()
+    cfg = port_config(SiftConfig())
     dog = _random_dog(40, 48, seed=2)
     t = torch.from_numpy(dog)
     cand = text.collect_candidates(t, cfg, 512)

@@ -1,0 +1,110 @@
+"""The port imports nothing of jax or of the JAX package, and its own
+copies of the shared plain-Python modules agree with the originals:
+``SiftConfig`` field for field and default for default, the Gauss tables
+bit for bit.
+"""
+
+import ast
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+
+from popsift_tpu import config as jconfig
+from popsift_tpu import gauss as jgauss
+from popsift_tpu_torch import config as tconfig
+from popsift_tpu_torch import gauss as tgauss
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "popsift_tpu_torch")
+
+
+def _port_sources():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PORT):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(paths)
+
+
+def _imported_modules(path):
+    """Absolute module names a file imports, at any depth of nesting."""
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    return names
+
+
+def test_port_has_sources():
+    rel = {os.path.relpath(p, REPO) for p in _port_sources()}
+    assert {"chip_smoke.py", "popsift_tpu_torch/config.py",
+            "popsift_tpu_torch/gauss.py", "popsift_tpu_torch/io/image.py",
+            "popsift_tpu_torch/runtime/native.py",
+            "popsift_tpu_torch/runtime/build.py"} <= rel
+    assert len(rel) >= 30
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_source_imports_neither_jax_nor_the_jax_package(path):
+    for name in _imported_modules(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "popsift_tpu"), \
+            f"{os.path.relpath(path, REPO)} imports {name}"
+
+
+def test_siftconfig_fields_and_defaults_equal():
+    jf = dataclasses.fields(jconfig.SiftConfig)
+    tf = dataclasses.fields(tconfig.SiftConfig)
+    assert [f.name for f in tf] == [f.name for f in jf]
+    assert [f.type for f in tf] == [f.type for f in jf]
+    assert dataclasses.asdict(tconfig.SiftConfig()) \
+        == dataclasses.asdict(jconfig.SiftConfig())
+    assert tconfig.SiftConfig is not jconfig.SiftConfig
+    consts = [n for n in dir(jconfig) if n.isupper()]
+    assert len(consts) >= 5
+    for n in consts:
+        assert getattr(tconfig, n) == getattr(jconfig, n), n
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(octaves=3, levels=4, sigma=1.8),
+    dict(sift_mode="vlfeat"), dict(sift_mode="opencv"),
+    dict(upscale_factor=0.0, extrema_capacity=512)],
+    ids=["default", "levels4", "vlfeat", "opencv", "no_upscale"])
+def test_siftconfig_derived_values_equal(kw):
+    j, t = jconfig.SiftConfig(**kw), tconfig.SiftConfig(**kw)
+    assert t.total_levels == j.total_levels
+    for w, h in ((1920, 1080), (80, 64), (33, 17)):
+        assert t.num_octaves_for(w, h) == j.num_octaves_for(w, h)
+        assert t.octave_dims(w, h) == j.octave_dims(w, h)
+        dims = j.octave_dims(w, h)
+        assert [t.capacity_for_octave(oh, ow) for oh, ow in dims] \
+            == [j.capacity_for_octave(oh, ow) for oh, ow in dims]
+    assert dataclasses.asdict(t.replace(octaves=2)) \
+        == dataclasses.asdict(j.replace(octaves=2))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(sift_mode="vlfeat"),
+    dict(sift_mode="vlfeat", gauss_mode="vlfeat-relative-all"),
+    dict(gauss_mode="fixed9")],
+    ids=["default", "vlfeat", "vlfeat_relative_all", "fixed9"])
+def test_gauss_tables_bit_equal(kw):
+    jt = jgauss.build_gauss_tables(jconfig.SiftConfig(**kw))
+    tt = tgauss.build_gauss_tables(tconfig.SiftConfig(**kw))
+    fields = [f.name for f in dataclasses.fields(jt)]
+    assert [f.name for f in dataclasses.fields(tt)] == fields
+    for name in fields:
+        a, b = np.asarray(getattr(tt, name)), np.asarray(getattr(jt, name))
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert np.array_equal(a, b), name
+    for l in range(jconfig.SiftConfig(**kw).total_levels):
+        assert np.array_equal(
+            tgauss.full_kernel(tt.inc[l], int(tt.inc_span[l])),
+            jgauss.full_kernel(jt.inc[l], int(jt.inc_span[l])))

@@ -6,10 +6,11 @@ skip without one. On the card:
 
     python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda
 
-Tolerances: blur/DoG levels, masks and refinement state exact (the
-kernels are built with -fmad=false and follow the plain version op for
-op); histograms and descriptors within 1e-5 x the row's max (fixed-order
-sums in another order than the plain version's reductions).
+Tolerances: blur/DoG levels (K5 and the chain K7), masks, window copies
+and refinement state exact (the kernels are built with -fmad=false and
+follow the plain version op for op); histograms and descriptors, the
+patch-fed and bucketed entries included, within 1e-5 x the row's max
+(fixed-order sums in another order than the plain version's reductions).
 """
 
 import math
@@ -19,10 +20,12 @@ import pytest
 import torch
 
 from popsift_tpu_torch.config import SiftConfig
-from popsift_tpu_torch.ops import extrema
-from popsift_tpu.gauss import build_gauss_tables, full_kernel
-from popsift_tpu_torch.ops.kernels import (blur_dog, desc, extrema_mask,
-                                           orient, refine)
+from popsift_tpu_torch.gauss import build_gauss_tables, full_kernel
+from popsift_tpu_torch.ops import extrema, patches
+from popsift_tpu_torch.ops import pyramid as pyr
+from popsift_tpu_torch.ops.kernels import (blur_chain, blur_dog, desc,
+                                           extrema_mask, orient, refine,
+                                           window)
 
 pytestmark = pytest.mark.cuda
 
@@ -145,3 +148,145 @@ def test_refine_batched_kernel(dev, vlfeat):
     ref = refine.refine_state_batched_torch(dog, x0, y0, z0, n_found, 2,
                                             **kw)
     assert torch.equal(got, ref)
+
+
+def _centres(dev, K, H, W, seed):
+    rng = np.random.default_rng(seed)
+    cy, cx = rng.integers(0, H, K), rng.integers(0, W, K)
+    cy[:4], cx[:4] = [0, H - 1, 0, H - 1], [0, W - 1, W - 1, 0]
+    return (torch.from_numpy(cy).to(dev), torch.from_numpy(cx).to(dev))
+
+
+@pytest.mark.parametrize("rows,cols,radius", [(11, 11, 5), (16, 128, 3)])
+def test_window_kernel(dev, rows, cols, radius):
+    """K6 equals its plain version bit for bit, border centres included;
+    rows past the count (read on the device) are zeros."""
+    vol = _dog(dev, seed=9)
+    cy, cx = _centres(dev, 200, 97, 131, seed=1)
+    n = torch.tensor(150, device=dev)
+    before = window.launches
+    got = window.extract_windows(vol, cy, cx, n, radius, rows, cols)
+    assert window.launches == before + 1
+    ref = window.extract_windows_torch(vol, cy, cx, n, radius, rows, cols)
+    assert got.shape == (200, 5, rows, cols)
+    assert torch.equal(got, ref) and torch.all(got[150:] == 0)
+    assert got[:150].abs().sum() > 0
+
+
+def test_window_batched_kernel(dev):
+    """Frame f's rows read layers [f*D, f*D + D) only."""
+    F, cap = 3, 64
+    vol = torch.cat([_dog(dev, seed=s) for s in (4, 5, 6)])
+    cy, cx = _centres(dev, F * cap, 97, 131, seed=2)
+    n_found = torch.tensor([cap, 0, 17], device=dev)
+    before = window.launches_batched
+    got = window.extract_windows_batched(vol, cy, cx, n_found, F, 5, 11, 11)
+    assert window.launches_batched == before + 1
+    ref = window.extract_windows_batched_torch(vol, cy, cx, n_found, F, 5,
+                                               11, 11)
+    assert torch.equal(got, ref)
+    one = window.extract_windows(vol[10:15], cy[2 * cap:], cx[2 * cap:],
+                                 n_found[2], 5, 11, 11)
+    assert torch.equal(got[2 * cap:], one)
+    assert torch.all(got[cap:2 * cap] == 0)
+
+
+def _chain_kernels():
+    cfg = SiftConfig()
+    tables = build_gauss_tables(cfg)
+    return [full_kernel(tables.inc[l], int(tables.inc_span[l]))
+            for l in range(1, cfg.total_levels)]
+
+
+@pytest.mark.parametrize("shape", [(75, 131), (9, 15), (200, 260)])
+@pytest.mark.parametrize("group", [None, 3, 2, 1])
+def test_blur_chain_kernel(dev, shape, group):
+    """K7 on strided level planes of a [N, L, H, W] stack equals the
+    level-by-level plain version and K5 bit for bit, also where the image
+    is smaller than the group's halo."""
+    ks = _chain_kernels()
+    n = len(ks)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    levels = (torch.rand((2, n + 1, *shape), generator=gen) * 255).to(dev)
+    dog = torch.zeros((2, n, *shape), device=dev)
+    want = blur_chain.blur_chain_torch(levels[:, 0].clone(), ks)
+    before = blur_chain.launches
+    blur_chain.blur_chain(levels[:, 0], ks, group,
+                          out=(levels[:, 1:], dog))
+    torch.cuda.synchronize(dev)
+    assert blur_chain.launches == before + -(-n // (group or n))
+    for l in range(n):
+        assert torch.equal(levels[:, l + 1], want[0][:, l]), l
+        assert torch.equal(dog[:, l], want[1][:, l]), l
+    prev = levels[:, 0]
+    for l, k in enumerate(ks):
+        b, d = blur_dog.blur_dog(prev, k)
+        assert torch.equal(b, levels[:, l + 1]) and torch.equal(d, dog[:, l])
+        prev = b
+
+
+def test_pyramid_chain_front_on_the_card(dev):
+    plan = pyr.build_pyramid_plan(SiftConfig(), 120, 160)
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    img = (torch.rand((2, 120, 160), generator=gen) * 255).to(
+        torch.uint8).to(dev)
+    lb, ld = pyr.build_pyramid_frames(img, plan)
+    cb, cd = pyr.build_pyramid_frames(img, plan, front="chain")
+    for a, b in zip(cb + cd, lb + ld):
+        assert torch.equal(a, b)
+
+
+def test_descriptor_patch_entry(dev):
+    """The patch entry against its plain version, and against the stack
+    entry on jobs whose support lies inside their window and the image."""
+    L, H, W, F, radius = 6, 160, 200, 96, 51
+    blur = torch.rand((L, H, W), device=dev) * 255
+    rng = np.random.default_rng(4)
+    f = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
+    x = f(rng.uniform(2, W - 3, F).astype(np.float32))
+    y = f(rng.uniform(2, H - 3, F).astype(np.float32))
+    s = f(rng.uniform(1.2, 4.4, F).astype(np.float32))
+    lv = f(rng.integers(0, L, F))
+    ang = f(rng.uniform(-math.pi, math.pi, F).astype(np.float32))
+    valid = torch.arange(F, device=dev) < F - 3
+    rows, cols = 104, 128
+    p, y0, x0 = patches.extract_patches_rect(
+        patches.pad_for_patches(blur, max(rows, cols)), lv,
+        torch.round(y).long(), torch.round(x).long(), rows, cols, radius,
+        radius)
+    before = desc.launches_patches
+    got = desc.descriptor_loop_patches(p, y0, x0, x, y, s, ang, valid, H, W)
+    assert desc.launches_patches == before + 1
+    ref = desc.descriptor_loop_patches_torch(p, y0, x0, x, y, s, ang, valid,
+                                             H, W)
+    assert torch.all(got[F - 3:] == 0) and _rel_rows(got, ref)
+    stack = desc.descriptor_loop(blur, x, y, s, lv, ang, valid, F, radius)
+    assert _rel_rows(got, stack)
+
+
+def test_bucketed_launches(dev):
+    """The bucketed launches of K3 and K4 against the single launch on
+    the same rows and against their plain versions."""
+    L, H, W, n = 6, 120, 150, 200
+    blur = torch.rand((L, H, W), device=dev) * 255
+    x, y, s, lv, ang, valid = _keypoints(dev, L, H, W, n, seed=6)
+    split = 1.6 * 2.0 ** (2.5 / 3)
+    b3, l3 = orient.launches_bucketed, orient.launches
+    got = orient.orientation_hist_bucketed(blur, x, y, s, lv, valid, 23,
+                                           split, 13)
+    assert (orient.launches_bucketed, orient.launches) == (b3 + 1, l3 + 2)
+    single = orient.orientation_hist(blur, x, y, s, lv, valid, n, 23)
+    assert torch.equal(got, single)       # K3 walks each row's own window
+    assert _rel_rows(got, orient.orientation_hist_bucketed(
+        blur, x, y, s, lv, valid, 23, split, 13, plain=True))
+    assert torch.all(got[~valid] == 0)
+
+    b4, l4 = desc.launches_bucketed, desc.launches
+    got = desc.descriptor_loop_bucketed(blur, x, y, s, lv, ang, valid, 51,
+                                        split, 33)
+    assert (desc.launches_bucketed, desc.launches) == (b4 + 1, l4 + 2)
+    single = desc.descriptor_loop(blur, x, y, s, lv, ang, valid, n, 51)
+    assert _rel_rows(got, single)
+    assert _rel_rows(got, desc.descriptor_loop_bucketed(
+        blur, x, y, s, lv, ang, valid, 51, split, 33, plain=True))
+    assert torch.all(got[~valid] == 0)

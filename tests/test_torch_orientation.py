@@ -23,6 +23,7 @@ from popsift_tpu.ops import orientation as jori
 from popsift_tpu.ops import pyramid as jpyr
 from popsift_tpu_torch.ops import orientation as tori
 from popsift_tpu_torch.ops.extrema import OctaveExtrema
+from test_torch_pipeline import port_config
 
 torch.set_num_threads(1)
 
@@ -74,7 +75,8 @@ def _port_hist(blur, ext, cfg):
         sigma=_t(ext.sigma), cell=_t(ext.cell), valid=_t(ext.valid),
         count=None, n_candidates=None, n_dropped=None)
     return tori.orientation_histograms(torch.from_numpy(np.array(blur)),
-                                       e, cfg, e.x.shape[0]).numpy()
+                                       e, port_config(cfg),
+                                       e.x.shape[0]).numpy()
 
 
 def _assert_rows_close(got, want, rel=1e-5):

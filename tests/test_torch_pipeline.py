@@ -8,6 +8,7 @@ the text writer, the explicit-device rule, the launch counters on the
 CPU, and that the port never loads jax.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -18,6 +19,7 @@ import torch
 
 from popsift_tpu.api import PopSift as JaxPopSift
 from popsift_tpu_torch import api as tapi
+from popsift_tpu_torch.config import SiftConfig as PortSiftConfig
 from popsift_tpu_torch.ops import kernels
 from popsift_tpu_torch.utils.device import resolve_device
 from test_golden import (DESC_TOL, GOLDEN_DIR, ORI_TOL, POS_TOL, SIG_TOL,
@@ -28,6 +30,12 @@ CASES = ("scene64_default", "scene120_default")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def port_config(cfg) -> PortSiftConfig:
+    """The port's SiftConfig built from the same keyword arguments as the
+    JAX package's ``cfg`` (the two packages keep separate classes)."""
+    return PortSiftConfig(**dataclasses.asdict(cfg))
+
+
 @pytest.fixture(scope="module")
 def runs():
     """Port and JAX results of both scenes, computed once."""
@@ -35,7 +43,8 @@ def runs():
     out = {}
     for name in CASES:
         img, cfg, _ = _load_cases()[name]
-        out[name] = (tapi.PopSift(cfg, device="cpu").enqueue(img).get(),
+        out[name] = (tapi.PopSift(port_config(cfg),
+                                  device="cpu").enqueue(img).get(),
                      JaxPopSift(cfg).enqueue(img).get())
     return out
 
@@ -82,7 +91,8 @@ def test_launch_counters_stay_zero_on_cpu(runs):
 
 def test_matching_mode_keeps_tensors():
     img, cfg, _ = _load_cases()["scene64_default"]
-    dev = tapi.PopSift(cfg, mode="matching", device="cpu").enqueue(img).get()
+    dev = tapi.PopSift(port_config(cfg), mode="matching",
+                       device="cpu").enqueue(img).get()
     assert isinstance(dev, tapi.FeaturesDev)
     assert dev.descriptors.shape[1] == 128
     assert dev.getDescriptorCount() == int(dev.desc_valid.sum()) > 0
@@ -106,8 +116,8 @@ def test_port_never_imports_jax():
         "                               'popsift_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax'\n"
-        "             or k.startswith(('jax.', 'jaxlib')))\n"
+        "bad = sorted(k for k in sys.modules if k in ('jax', 'popsift_tpu')\n"
+        "             or k.startswith(('jax.', 'jaxlib', 'popsift_tpu.')))\n"
         "assert not bad, bad\n"
         "for m in ('popsift_tpu_torch.runtime.batchjob',\n"
         "          'popsift_tpu_torch.cli.batch'):\n"

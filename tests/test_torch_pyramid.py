@@ -15,6 +15,7 @@ from conftest import synthetic_image
 from popsift_tpu.config import SiftConfig
 from popsift_tpu.ops import pyramid as jpyr
 from popsift_tpu_torch.ops import pyramid as tpyr
+from test_torch_pipeline import port_config
 
 torch.set_num_threads(1)
 
@@ -24,7 +25,7 @@ torch.set_num_threads(1)
 def test_plan_equal_tap_for_tap(h, w, octaves):
     cfg = SiftConfig(octaves=octaves)
     jp = jpyr.build_pyramid_plan(cfg, h, w)
-    tp = tpyr.build_pyramid_plan(cfg, h, w)
+    tp = tpyr.build_pyramid_plan(port_config(cfg), h, w)
     assert tp.dims == jp.dims and tp.shift0 == jp.shift0
     assert (tp.in_h, tp.in_w) == (jp.in_h, jp.in_w)
     for field in ("inc_kernels", "absN_kernels", "dd_kernels",
@@ -49,7 +50,8 @@ def test_pyramid_matches_jax(h, w, octaves, seed):
     jplan = jpyr.build_pyramid_plan(cfg, h, w)
     jb, jd = jax.jit(lambda x: jpyr.build_pyramid(x, jplan))(img)
     tb, td = tpyr.build_pyramid(torch.from_numpy(img),
-                                tpyr.build_pyramid_plan(cfg, h, w))
+                                tpyr.build_pyramid_plan(port_config(cfg),
+                                                       h, w))
     assert len(tb) == len(jb) == len(td) == len(jd)
     for a, b in zip(tb, jb):
         assert tuple(a.shape) == b.shape and a.dtype == torch.float32
@@ -68,7 +70,8 @@ def test_float_input_matches_jax():
     jplan = jpyr.build_pyramid_plan(cfg, 40, 48)
     jb, _ = jax.jit(lambda x: jpyr.build_pyramid(x, jplan))(img)
     tb, _ = tpyr.build_pyramid(torch.from_numpy(img),
-                               tpyr.build_pyramid_plan(cfg, 40, 48))
+                               tpyr.build_pyramid_plan(port_config(cfg),
+                                                       40, 48))
     for a, b in zip(tb, jb):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
                                    atol=1e-4)
@@ -82,4 +85,5 @@ def test_non_default_strategies_raise(kw):
     cfg = SiftConfig(octaves=2, **kw)
     img = torch.zeros((32, 40), dtype=torch.uint8)
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tpyr.build_pyramid(img, tpyr.build_pyramid_plan(cfg, 32, 40))
+        tpyr.build_pyramid(img, tpyr.build_pyramid_plan(port_config(cfg), 32,
+                                                     40))
