@@ -12,12 +12,17 @@ any failed phase raises and the script exits non-zero:
 3. each kernel against its plain PyTorch version on the same tensors, at
    the shapes the main path gives it on a 1920x1080 frame
    (``bench.make_frame``, seed 0): blur/DoG levels (K5) exact or within
-   1e-4 on the 0..255 scale, masks exact, refinement state within 1e-5
+   1e-4 on the 0..255 scale and its pick of every second pixel equal to
+   the slice, masks exact, refinement state within 1e-5
    with the accept masks exact, histograms and descriptors within 1e-5 x
    the row's max; the batched entries of K1 and K2 on four frames
    (seeds 0-3), exact; the window copy K6 and its batched entry, exact;
+   K5's one launch over the thin octaves (34 x 60 and smaller) bit-equal
+   to its plain version and to the planes of the level launches;
    the chain front K7 on every octave against K5's planes (bit-equal, or
-   within 1e-4 with the difference printed); the patch entry of K4 on the
+   within 1e-4 with the difference printed); K4's one launch over all
+   octaves bit-equal to its single-octave launches and to a second run;
+   the patch entry of K4 on the
    densest octave's real jobs against its plain version and against K4,
    and the bucketed launches of K3 and K4 against the single launch on the
    same rows, within 1e-5 x the row's max; median time of kernel and
@@ -29,15 +34,17 @@ any failed phase raises and the script exits non-zero:
 4. the main path ``PopSift(SiftConfig(extrema_capacity=8192),
    device="cuda").enqueue(frame).get()`` with every launch counter reset
    just before it: 2110 keypoints / 2505 descriptors, no dropped
-   candidate, every kernel of the path launched; finite outputs; the two
-   golden scenes (tests/golden) within the golden tolerances; warm
+   candidate, every kernel of the path launched, K4 exactly once (over
+   all octaves) and its single-octave entry not at all; finite outputs;
+   the two golden scenes (tests/golden) within the golden tolerances; warm
    ms/frame of the kernel path and of the plain-PyTorch path on the
    card, and the counts of the ``SiftConfig()`` default;
 5. the batch path ``enqueue_batch`` of the four frames, counters reset
-   just before it: K5 once per (octave, level), batched K1 and K2 once
-   per octave; each frame equal to its own ``enqueue`` (counts, masks and
-   integer fields exact, float fields bit-equal or within 1e-6 x the
-   field's magnitude); warm ms/frame of the batch against single-frame
+   just before it: K5 once per level of the wide octaves and once for
+   all thin octaves, batched K1 and K2 once
+   per octave, K4 once for the whole batch; each frame equal to its own
+   ``enqueue`` (counts, masks and integer fields exact, float fields
+   bit-equal or within 1e-6 x the field's magnitude); warm ms/frame of the batch against single-frame
    ``enqueue`` and the plain batch; then ``PopSift.calibrate([frame])``
    with the counters reset just before it (its detect-only probe
    launches K5 and the dense K1 entry and nothing else) and ``enqueue``:
@@ -48,7 +55,8 @@ any failed phase raises and the script exits non-zero:
    per octave and K2 not at all, every frame equal to its
    ``detect="fused"`` result); ``front="chain"`` the same way (K7
    launched, K5 not); the entries that no extraction path calls (the
-   patch entry of K4, the bucketed launches of K3 and K4) driven once on
+   patch entry of K4, the bucketed launches of K3 and K4 with K4's
+   single-octave entry beneath them) driven once on
    the densest octave's rows; warm ms/frame of each route, interleaved
    with the default route.
 
@@ -83,26 +91,31 @@ FRAME_HW = (1080, 1920)
 N_FRAMES = 4           # the batch of phases 3 and 5: make_frame seeds 0..3
 BENCH_KEYPOINTS, BENCH_DESCRIPTORS = 2110, 2505
 # kernel entries of each path (phase 4: single frame, phase 5: batch)
-MAIN_PATH = ("blur_dog", "extrema_mask", "refine", "orientation_hist",
-             "descriptor_loop")
-BATCH_PATH = ("blur_dog", "extrema_mask_batched", "refine_batched",
-              "orientation_hist", "descriptor_loop")
-PROBE_PATH = ("blur_dog", "extrema_mask")   # the calibration probe
+MAIN_PATH = ("blur_dog", "blur_dog_thin", "extrema_mask", "refine",
+             "orientation_hist", "descriptor_loop_octaves")
+BATCH_PATH = ("blur_dog", "blur_dog_thin", "extrema_mask_batched",
+              "refine_batched", "orientation_hist", "descriptor_loop_octaves")
+# the calibration probe
+PROBE_PATH = ("blur_dog", "blur_dog_thin", "extrema_mask")
 # phase 6: the window route (single, batch), the chain front, and the
 # entries that no extraction path calls
-WINDOW_PATH = ("blur_dog", "extrema_mask", "extract_windows",
-               "orientation_hist", "descriptor_loop")
-WINDOW_BATCH_PATH = ("blur_dog", "extrema_mask_batched",
+WINDOW_PATH = ("blur_dog", "blur_dog_thin", "extrema_mask",
+               "extract_windows", "orientation_hist",
+               "descriptor_loop_octaves")
+WINDOW_BATCH_PATH = ("blur_dog", "blur_dog_thin", "extrema_mask_batched",
                      "extract_windows_batched", "orientation_hist",
-                     "descriptor_loop")
+                     "descriptor_loop_octaves")
 CHAIN_PATH = ("blur_chain", "extrema_mask", "refine", "orientation_hist",
-              "descriptor_loop")
+              "descriptor_loop_octaves")
+# the single-octave K4 entry runs beneath the bucketed one
 OFF_PATH = ("descriptor_loop_patches", "orientation_hist_bucketed",
-            "descriptor_loop_bucketed")
+            "descriptor_loop_bucketed", "descriptor_loop")
 # which run's counts a kernel entry reports in the JSON line
 LAUNCHES_FROM = {
-    "blur_dog": "main", "extrema_mask": "main", "refine": "main",
-    "orientation_hist": "main", "descriptor_loop": "main",
+    "blur_dog": "main", "blur_dog_thin": "main", "extrema_mask": "main",
+    "refine": "main",
+    "orientation_hist": "main", "descriptor_loop_octaves": "main",
+    "descriptor_loop": "off_path",
     "extrema_mask_batched": "batch", "refine_batched": "batch",
     "extract_windows": "windows", "extract_windows_batched": "windows_batch",
     "blur_chain": "chain", "descriptor_loop_patches": "off_path",
@@ -283,29 +296,85 @@ def kernels_phase(frames: list, dev, reps: int = 20) -> list:
 
     # K5 blur + DoG: every (octave, level) of the frame, from the same
     # level l-1 as input
-    bargs = [(blurs[o][l - 1:l], plan.pyramid.inc_kernels[l])
+    # (src, filter, out, pick): the launch of level L - 3 also writes the
+    # pick of every second pixel, the next octave's level 0, as in the pyramid
+    bargs = [(blurs[o][l - 1:l], plan.pyramid.inc_kernels[l], None,
+              torch.empty((1, *dims[o + 1]), device=dev)
+              if l == cfg.total_levels - 3 and o + 1 < nO else None)
              for o in range(nO) for l in range(1, cfg.total_levels)]
     err = 0.0
-    for src, k in bargs:
-        got = blur_dog.blur_dog(src, k)
+    for src, k, _, pick in bargs:
+        got = blur_dog.blur_dog(src, k, pick=pick)
         want = blur_dog.blur_dog_torch(src, k)
         sync(dev)
         err = max(err, float((got[0] - want[0]).abs().max()),
                   float((got[1] - want[1]).abs().max()))
+        if pick is not None:
+            check(bool(torch.equal(pick, blur_dog.pick_every_second(
+                want[0], *pick.shape[-2:]))),
+                f"K5 pick of {tuple(src.shape)} differs from the slice")
     check(err <= 1e-4, f"K5 blur/DoG differ by {err} (limit 1e-4)")
+    n_pick = sum(a[3] is not None for a in bargs)
     say(f"K5 {'bit-equal to' if err == 0 else 'within 1e-4 of'} its plain "
-        f"version over {len(bargs)} levels")
-    lerr = max(float((a - b).abs().max()) for src, k in bargs
+        f"version over {len(bargs)} levels, its {n_pick} picks equal to "
+        f"the slices")
+    lerr = max(float((a - b).abs().max()) for src, k, _, _ in bargs
                for a, b in zip(conv_library(src, k),
                                blur_dog.blur_dog(src, k)))
     check(lerr <= 1e-3, f"F.conv2d blur/DoG differ from K5 by {lerr}")
     say(f"F.conv2d (two passes + subtraction) within {lerr:.3g} of K5")
-    conv_ms = median_ms(lambda: [conv_library(*a) for a in bargs], dev, reps)
+    conv_ms = median_ms(lambda: [conv_library(*a[:2]) for a in bargs], dev,
+                        reps)
     row(blur_dog.NAME, err,
         median_ms(lambda: [blur_dog.blur_dog(*a) for a in bargs], dev, reps),
         median_ms(lambda: [blur_dog.blur_dog_torch(*a) for a in bargs], dev,
                   reps),
-        bound_ms(sum(12 * p for p in px for _ in levels), blur_ops), conv_ms)
+        bound_ms(sum(12 * p for p in px for _ in levels)
+                 + sum(4 * a[3].numel() for a in bargs if a[3] is not None),
+                 blur_ops), conv_ms)
+
+    # K5's thin entry: every level of the octaves from the first thin one on,
+    # in one launch, on copies whose level 0 of the first octave is filled
+    ft = pyr_mod.first_thin_octave(plan.pyramid)
+    check(ft < nO, "no octave of the 1080p frame is thin")
+    ks = list(plan.pyramid.inc_kernels[1:])
+    src_lvl = cfg.total_levels - 3
+
+    def thin_args():
+        tb = [torch.zeros_like(blurs[o][None]) for o in range(ft, nO)]
+        tb[0][0, 0] = blurs[ft][0]
+        return tb, [torch.zeros_like(dogs[o][None]) for o in range(ft, nO)]
+
+    tb, td = thin_args()
+    blur_dog.blur_dog_thin(tb, td, ks, src_lvl)
+    pb, pd = thin_args()
+    blur_dog.blur_dog_thin_torch(pb, pd, ks, src_lvl)
+    sync(dev)
+    err = max(float((a - b).abs().max()) for a, b in zip(tb + td, pb + pd))
+    check(err == 0, f"K5's thin entry differs from its plain version by {err}")
+    check(all(torch.equal(tb[i][0], blurs[ft + i])
+              and torch.equal(td[i][0], dogs[ft + i])
+              for i in range(nO - ft)),
+          "K5's thin entry differs from the pyramid's planes")
+    say(f"K5's thin entry bit-equal to its plain version and to the "
+        f"pyramid's planes on octaves {ft}..{nO - 1} "
+        f"({[tuple(dims[o]) for o in range(ft, nO)]})")
+    thin_px = px[ft:]
+    n_lv = cfg.total_levels - 1
+    row(blur_dog.NAME_THIN, err,
+        median_ms(lambda: blur_dog.blur_dog_thin(tb, td, ks, src_lvl), dev,
+                  reps),
+        median_ms(lambda: blur_dog.blur_dog_thin_torch(pb, pd, ks, src_lvl),
+                  dev, reps),
+        bound_ms(4 * thin_px[0] + sum(8 * n_lv * p for p in thin_px)
+                 + sum(4 * p for p in thin_px[1:]),
+                 sum(p * (2 * (1 + 3 * spans[l]) + 1)
+                     for p in thin_px for l in levels)),
+        median_ms(lambda: [conv_library(blurs[o][l - 1:l], ks[l - 1])
+                           for o in range(ft, nO)
+                           for l in range(1, cfg.total_levels)], dev, reps),
+        what=f"per frame (octaves {ft}..{nO - 1}, one launch)")
+    del tb, td, pb, pd
 
     # K7 chain front: every octave's levels 1..L-1 from level 0 in groups
     # of three, against the planes K5 wrote into the pyramid
@@ -481,10 +550,22 @@ def kernels_phase(frames: list, dev, reps: int = 20) -> list:
                       jobs.level[sl], jobs.ang[sl], jobs.valid[sl],
                       counts[o], radius))
     say(f"descriptor jobs per octave {counts}")
-    dk = torch.cat([desc.descriptor_loop(*a) for a in dargs])
+    # one launch over the rows of all octaves, as the extraction path has it
+    oargs_all = (list(blurs), [int(e) for e in joff[1:]], jobs.x, jobs.y,
+                 jobs.sigma, jobs.level, jobs.ang, jobs.valid, radius)
+    dk = desc.descriptor_loop_octaves(*oargs_all)
     dp = torch.cat([desc.descriptor_loop_torch(*a) for a in dargs])
     rel = rel_row_err(dk, dp)
     check(rel <= 1e-5, f"K4 descriptors differ by {rel} x row max")
+    check(bool(torch.equal(dk, desc.descriptor_loop_octaves(*oargs_all))),
+          "two runs of K4 differ")
+    check(bool(torch.equal(dk, torch.cat([desc.descriptor_loop(*a)
+                                          for a in dargs]))),
+          "K4's launch over all octaves differs from its single-octave "
+          "launches")
+    say(f"K4 over all {nO} octaves in one launch: within {rel:.3g} x row "
+        f"max of its plain version, bit-equal to the {nO} single-octave "
+        f"launches and to a second run")
     # a valid job's support of half-side s = ceil(2.5 sqrt(2) 3 sigma) + 2
     # (at most the static radius) with its gradient margin read once, its
     # 128 bins written; about 90 operations a pixel (gradient, sqrt, atan2,
@@ -496,11 +577,16 @@ def kernels_phase(frames: list, dev, reps: int = 20) -> list:
     desc_bound = bound_ms(
         float(((2 * sup + 3) ** 2).sum()) * 4 + n_jobs_cap * 128 * 4,
         desc_ops)
+    plain_ms = median_ms(lambda: [desc.descriptor_loop_torch(*a)
+                                  for a in dargs], dev, reps)
+    row(desc.NAME_OCTAVES, float((dk - dp).abs().max()),
+        median_ms(lambda: desc.descriptor_loop_octaves(*oargs_all), dev,
+                  reps), plain_ms, desc_bound)
     row(desc.NAME, float((dk - dp).abs().max()),
         median_ms(lambda: [desc.descriptor_loop(*a) for a in dargs],
-                  dev, reps),
-        median_ms(lambda: [desc.descriptor_loop_torch(*a) for a in dargs],
-                  dev, reps), desc_bound)
+                  dev, reps), plain_ms, desc_bound,
+        what=f"per frame as {sum(c > 0 for c in counts)} single-octave "
+             f"launches")
 
     # bucketed launches of K4 on the same rows
     r_small = int(np.ceil(2.5 * 2.0 ** 0.5 * 3.0 * split)) + 2
@@ -564,7 +650,8 @@ def kernels_phase(frames: list, dev, reps: int = 20) -> list:
                  float(((2 * sup_o + 1) ** 2).sum()) * 90),
         what=f"on octave {od}'s {jn} jobs (K4 on the same jobs: "
              f"{k4_ms:.4f} ms)")
-    del blurs, dogs, bargs, args, oargs, dargs, wargs, bo, bd, pt, pargs
+    del blurs, dogs, bargs, args, oargs, oargs_all, dargs, wargs, bo, bd
+    del pt, pargs
 
     # batched K1 and K2 on all frames' stacks (frames back to back on the
     # layer axis), one launch per octave each
@@ -693,6 +780,10 @@ def main_path_phase(frame: np.ndarray, dev, reps: int = 5) -> dict:
     for name in MAIN_PATH:
         check(launches[name] > 0,
               f"kernel {name} was not launched on the main path")
+    check(launches["descriptor_loop_octaves"] == 1
+          and launches["descriptor_loop"] == 0,
+          f"K4 launched {launches['descriptor_loop_octaves']} times over "
+          f"all octaves and {launches['descriptor_loop']} times on one")
     dropped = raw.octave_dropped.tolist()
     check(all(d == 0 for d in dropped), f"dropped candidates {dropped}")
     check(host.getFeatureCount() == BENCH_KEYPOINTS
@@ -756,6 +847,7 @@ def batch_phase(frames: list, dev, reps: int = 3) -> dict:
     from popsift_tpu_torch.api import PopSift
     from popsift_tpu_torch.config import SiftConfig
     from popsift_tpu_torch.ops import kernels
+    from popsift_tpu_torch.ops.pyramid import first_thin_octave
     from popsift_tpu_torch.pipeline import (build_extract_plan, extract,
                                             extract_batch)
 
@@ -773,13 +865,21 @@ def batch_phase(frames: list, dev, reps: int = 3) -> dict:
     for name in BATCH_PATH:
         check(launches[name] > 0, f"kernel {name} was not launched on the "
               f"batch path")
-    check(launches["blur_dog"] == n_oct * (cfg.total_levels - 1),
-          f"K5 launched {launches['blur_dog']} times for {n_oct} octaves")
+    n_wide = first_thin_octave(plan.pyramid)
+    check(launches["blur_dog"] == n_wide * (cfg.total_levels - 1)
+          and launches["blur_dog_thin"] == 1,
+          f"K5 launched {launches['blur_dog']} times for {n_wide} wide "
+          f"octaves and {launches['blur_dog_thin']} times for the "
+          f"{n_oct - n_wide} thin ones")
     for name in ("extrema_mask_batched", "refine_batched"):
         check(launches[name] == n_oct,
               f"{name} launched {launches[name]} times for {n_oct} octaves")
     for name in ("extrema_mask", "refine"):
         check(launches[name] == 0, f"single-frame {name} ran in the batch")
+    check(launches["descriptor_loop_octaves"] == 1
+          and launches["descriptor_loop"] == 0,
+          f"K4 launched {launches['descriptor_loop_octaves']} times for the "
+          f"batch and {launches['descriptor_loop']} times on one octave")
 
     for f, (frame, job, host) in enumerate(zip(frames, jobs, hosts)):
         one = ps.enqueue(frame)
@@ -913,9 +1013,9 @@ def routes_phase(frames: list, dev, reps: int = 7) -> dict:
     check(n["blur_chain"] == n_oct * n_groups and n["blur_dog"] == 0,
           f"chain front launched K7 {n['blur_chain']} times for {n_oct} "
           f"octaves of {n_groups} groups and K5 {n['blur_dog']} times")
-    drive("chain_batch", CHAIN_PATH[:1] + BATCH_PATH[1:], True,
+    drive("chain_batch", CHAIN_PATH[:1] + BATCH_PATH[2:], True,
           front="chain")
-    drive("windows_chain", ("blur_chain",) + WINDOW_PATH[1:], False,
+    drive("windows_chain", ("blur_chain",) + WINDOW_PATH[2:], False,
           detect="windows", front="chain")
 
     # the entries off every path, driven once on the densest octave's rows
@@ -1039,7 +1139,9 @@ def profile_phase(frame: np.ndarray, dev, out_dir: str) -> None:
             f"host launch calls "
             f"{sum(e.count for e in avg if 'LaunchKernel' in e.key)}, "
             f"stream syncs "
-            f"{sum(e.count for e in avg if 'StreamSynchronize' in e.key)}; "
+            f"{sum(e.count for e in avg if 'StreamSynchronize' in e.key)}, "
+            f"aten::copy_ calls "
+            f"{sum(e.count for e in avg if e.key == 'aten::copy_')}; "
             f"the port's kernels (device ms) {ours}; table in {path}")
 
 

@@ -4,8 +4,11 @@ Each module holds one kernel's wrappers, their plain PyTorch versions
 and a ``launches`` counter per entry (a frame-batched entry counts on
 its own, ``launches_batched``). A wrapper given CPU tensors runs the
 plain version; given CUDA tensors it launches the kernel (adding one to
-its counter) or raises. There is no other switch between the two. The
-bucketed entries of K3 and K4 add no kernel of their own: each counts the
+its counter) or raises. There is no other switch between the two.
+``blur_dog_thin`` is K5's one launch for all levels of the thin octaves.
+``descriptor_loop_octaves`` is K4's launch over all octaves of a frame or
+batch, ``descriptor_loop`` the same kernel on one octave. The bucketed
+entries of K3 and K4 add no kernel of their own: each counts the
 calls in which it launched the kernel beneath it.
 """
 
@@ -15,10 +18,12 @@ from . import (blur_chain, blur_dog, desc, extrema_mask, orient, refine,
 # entry name -> (module, counter attribute, file:line of the TPU kernel)
 ENTRIES = {
     blur_dog.NAME: (blur_dog, "launches", blur_dog.REPLACES),
+    blur_dog.NAME_THIN: (blur_dog, "launches_thin", blur_dog.REPLACES_THIN),
     extrema_mask.NAME: (extrema_mask, "launches", extrema_mask.REPLACES),
     refine.NAME: (refine, "launches", refine.REPLACES),
     orient.NAME: (orient, "launches", orient.REPLACES),
     desc.NAME: (desc, "launches", desc.REPLACES),
+    desc.NAME_OCTAVES: (desc, "launches_octaves", desc.REPLACES_OCTAVES),
     extrema_mask.NAME_BATCHED: (extrema_mask, "launches_batched",
                                 extrema_mask.REPLACES_BATCHED),
     refine.NAME_BATCHED: (refine, "launches_batched",

@@ -61,9 +61,12 @@ _SIGNATURES = {
     # patches, P, PL, H, W, y0, x0, x, y, sigma, ang, valid, n, out, stream
     "ps_descriptor_loop_patches": (_VP, _I, _I, _I, _I, _VP, _VP, _VP, _VP,
                                    _VP, _VP, _VP, _I, _VP, _VP),
-    # src, src_stride, blur, blur_stride, dog, dog_stride, N, H, W, taps,
-    # S, stream
-    "ps_blur_dog": (_VP, _LL, _VP, _LL, _VP, _LL, _I, _I, _I, _VP, _I, _VP),
+    # src, src_stride, blur, blur_stride, dog, dog_stride, pick,
+    # pick_stride, OH, OW, N, H, W, taps, S, stream
+    "ps_blur_dog": (_VP, _LL, _VP, _LL, _VP, _LL, _VP, _LL, _I, _I, _I, _I,
+                    _I, _VP, _I, _VP),
+    # table (host i64[n_oct, 4]), n_oct, N, L, pick_level, taps, spans, stream
+    "ps_blur_dog_thin": (_VP, _I, _I, _I, _I, _VP, _VP, _VP),
     # dog, out, D, H, W, thr1, stream
     "ps_extrema_mask": (_VP, _VP, _I, _I, _I, _F, _VP),
     # dog, out, F, D, H, W, thr1, stream
@@ -80,6 +83,10 @@ _SIGNATURES = {
     # blur, L, H, W, x, y, sigma, level, ang, valid, n, radius, out, stream
     "ps_descriptor_loop": (_VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP,
                            _I, _I, _VP, _VP),
+    # table (host i64[n_oct, 5]), n_oct, x, y, sigma, level, ang, valid,
+    # radius, out, stream
+    "ps_descriptor_loop_octaves": (_VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _I,
+                                   _VP, _VP),
 }
 
 

@@ -10,6 +10,15 @@ at -1.5..1.5 and a linear split into 8 angle bins
 is f32[F, 128] in (ty, tx, b) order, not normalized. Invalid jobs, jobs
 with sigma 0 and rows at or past ``n`` are zero.
 
+The kernel gathers by tile: a block of 16 warps takes a job, the block
+stages each support pixel's terms once in shared memory, and the warp of
+tile (ty, tx) walks only the box of pixels that can reach its tile
+(:func:`tile_boxes` is the same box in numpy) and sums 8 angle bins in
+registers, in an order fixed by the code (csrc/desc.cu has the design
+note). :func:`descriptor_loop_octaves` runs the job rows of all octaves
+of a frame, or of a batch, in ONE launch; :func:`descriptor_loop` is the
+same kernel on one octave.
+
 Two more entries close the JAX package's descriptor kernels:
 
 * :func:`descriptor_loop_patches` replaces ``descriptor_loop_pallas``
@@ -21,11 +30,12 @@ Two more entries close the JAX package's descriptor kernels:
   (desc.py:383, :439): jobs routed by sigma into ascending
   ``(sigma_hi, radius)`` buckets, one K4 launch per bucket with that
   bucket's window radius, gathered back in row order. The extraction
-  path launches K4 once per octave and does not call them.
+  path launches K4 once per frame or batch and does not call them.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
@@ -38,11 +48,15 @@ from .orient import _gather_patches
 NAME = "descriptor_loop"
 SOURCE = "popsift_tpu_torch/csrc/desc.cu"
 REPLACES = "popsift_tpu/ops/pallas/desc.py:318"
+NAME_OCTAVES = "descriptor_loop_octaves"
+REPLACES_OCTAVES = REPLACES     # the same TPU kernel, once per octave there
 NAME_PATCHES = "descriptor_loop_patches"
 REPLACES_PATCHES = "popsift_tpu/ops/pallas/desc.py:192"
 NAME_BUCKETED = "descriptor_loop_bucketed"
 REPLACES_BUCKETED = "popsift_tpu/ops/pallas/desc.py:383"
+MAX_OCTAVES = 16    # csrc/desc.cu MAX_OCT
 launches = 0
+launches_octaves = 0
 launches_patches = 0
 launches_bucketed = 0    # bucketed calls that reached K4 on a CUDA device
 _TWO_PI = float(np.float32(2.0 * math.pi))
@@ -134,6 +148,104 @@ def descriptor_loop_torch(blur, x, y, sigma, level, ang, valid, n: int,
     return out
 
 
+def tile_boxes(x, y, sigma, ang):
+    """The pixel boxes the kernel's tile warps walk, before clipping to
+    the scan bounds: numpy model of csrc/desc.cu, same formula in f32.
+    For jobs ``x, y, sigma, ang`` f32[F] returns integer arrays
+    ``(x_lo, x_hi, y_lo, y_hi)`` [F, 4, 4] indexed (ty, tx), inclusive
+    image coordinates. Tile (ty, tx) takes weight only from pixels with
+    |nx - (tx - 1.5)| < 1 and |ny - (ty - 1.5)| < 1, a rotated square of
+    half-side SBP = 3 sigma around kp + SBP R(ang) (tx - 1.5, ty - 1.5);
+    the box is its axis-aligned hull, half-side SBP (|cos| + |sin|),
+    plus one pixel for the rounding of the f32 terms."""
+    f32 = np.float32
+    x, y, sigma, ang = (np.asarray(a, f32) for a in (x, y, sigma, ang))
+    sbp = np.abs(f32(3.0) * sigma)[:, None, None]
+    ca = np.cos(ang).astype(f32)[:, None, None]
+    sa = np.sin(ang).astype(f32)[:, None, None]
+    cent = np.arange(4, dtype=f32) - f32(1.5)
+    cx, cy = cent[None, None, :], cent[None, :, None]
+    half = sbp * (np.abs(ca) + np.abs(sa)) + f32(1.0)
+    tcx = x[:, None, None] + sbp * (ca * cx - sa * cy)
+    tcy = y[:, None, None] + sbp * (sa * cx + ca * cy)
+    return (np.floor(tcx - half).astype(np.int64),
+            np.ceil(tcx + half).astype(np.int64),
+            np.floor(tcy - half).astype(np.int64),
+            np.ceil(tcy + half).astype(np.int64))
+
+
+def _kernel_args(x, y, sigma, level, ang, valid):
+    """The job arrays in the kernel's types, contiguous."""
+    x, y, sigma, ang = (t.to(torch.float32).contiguous()
+                        for t in (x, y, sigma, ang))
+    level = level.to(torch.int32).contiguous()
+    valid = valid.to(torch.uint8).contiguous()
+    return x, y, sigma, level, ang, valid
+
+
+def descriptor_loop_octaves_torch(blurs, row_ends, x, y, sigma, level, ang,
+                                  valid, radius: int) -> torch.Tensor:
+    """Plain version of :func:`descriptor_loop_octaves`: per octave the
+    valid rows gathered to the front in row order, through
+    :func:`descriptor_loop_torch`, scattered back."""
+    out = torch.zeros((x.shape[0], 128), dtype=torch.float32,
+                      device=x.device)
+    start = 0
+    for blur, end in zip(blurs, row_ends):
+        rows = start + valid[start:end].nonzero().squeeze(1)
+        if rows.numel():
+            out[rows] = descriptor_loop_torch(
+                blur, x[rows], y[rows], sigma[rows], level[rows], ang[rows],
+                valid[rows], rows.numel(), radius)
+        start = end
+    return out
+
+
+def descriptor_loop_octaves(blurs, row_ends, x, y, sigma, level, ang, valid,
+                            radius: int) -> torch.Tensor:
+    """f32[F, 128] raw descriptors of the job rows of several octaves in
+    one launch. ``blurs``: the octaves' f32[L_o, H_o, W_o] blur stacks;
+    ``row_ends``: ascending ends of each octave's rows in the job arrays
+    (octave o owns rows [row_ends[o-1], row_ends[o]), the last is F);
+    ``level`` indexes the octave's own stack (a batch adds ``frame * L``).
+    Rows that are not valid are zero; no count is read back. Plain
+    version on the CPU, kernel K4 on a CUDA device."""
+    global launches_octaves
+    F = x.shape[0]
+    if len(blurs) != len(row_ends) or not blurs or list(row_ends) != sorted(
+            row_ends) or row_ends[-1] != F:
+        raise ValueError(f"descriptor_loop_octaves: row ends {row_ends} for "
+                         f"{len(blurs)} octaves and {F} rows")
+    for b in blurs:
+        if b.dim() != 3 or b.dtype != torch.float32:
+            raise ValueError("descriptor_loop_octaves expects f32[L, H, W] "
+                             "stacks")
+    if blurs[0].device.type == "cpu":
+        return descriptor_loop_octaves_torch(blurs, row_ends, x, y, sigma,
+                                             level, ang, valid, radius)
+    if len(blurs) > MAX_OCTAVES:
+        raise ValueError(f"descriptor_loop_octaves: {len(blurs)} octaves "
+                         f"(at most {MAX_OCTAVES})")
+    x, y, sigma, level, ang, valid = _kernel_args(
+        x, y, sigma, level, ang, valid)
+    build.require_cuda(NAME_OCTAVES, *blurs, x, y, sigma, level, ang, valid)
+    out = torch.zeros((F, 128), dtype=torch.float32, device=x.device)
+    if F == 0:
+        return out
+    # by-value launch table: the stacks stay alive in ``blurs`` and the
+    # launch is ordered on the current stream, so raw addresses are safe
+    table = np.asarray([[b.data_ptr(), *b.shape, end]
+                        for b, end in zip(blurs, row_ends)], np.int64)
+    lib = build.load_library()
+    rc = lib.ps_descriptor_loop_octaves(
+        table.ctypes.data_as(ctypes.c_void_p), len(blurs), x.data_ptr(),
+        y.data_ptr(), sigma.data_ptr(), level.data_ptr(), ang.data_ptr(),
+        valid.data_ptr(), radius, out.data_ptr(), build.stream_of(x))
+    build.check(rc, NAME_OCTAVES)
+    launches_octaves += 1
+    return out
+
+
 def descriptor_loop(blur, x, y, sigma, level, ang, valid, n: int,
                     radius: int) -> torch.Tensor:
     """f32[F, 128] raw descriptors of jobs [0, n) on the octave's
@@ -147,10 +259,8 @@ def descriptor_loop(blur, x, y, sigma, level, ang, valid, n: int,
     if blur.device.type == "cpu":
         return descriptor_loop_torch(blur, x, y, sigma, level, ang, valid,
                                      n, radius)
-    x, y, sigma, ang = (t.to(torch.float32).contiguous()
-                        for t in (x, y, sigma, ang))
-    level = level.to(torch.int32).contiguous()
-    valid = valid.to(torch.uint8).contiguous()
+    x, y, sigma, level, ang, valid = _kernel_args(
+        x, y, sigma, level, ang, valid)
     build.require_cuda(NAME, blur, x, y, sigma, level, ang, valid)
     L, H, W = blur.shape
     F = x.shape[0]

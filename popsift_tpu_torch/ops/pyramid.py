@@ -8,13 +8,15 @@ DoG layers, stored in 0..255 scale:
   form of (2x upsample -> dd[0] horizontal -> inc[0] vertical);
 * levels 1..L-1 by incremental separable blur with edge-replicated
   borders, each with its DoG, DoG[l-1] = blur[l] - blur[l-1], in one
-  call of kernel K5 (ops/kernels/blur_dog.py) per level for all frames
-  (``front="level"``, the default), or in one call of kernel K7
+  call of kernel K5 (ops/kernels/blur_dog.py) per level for all frames,
+  and for the thin octaves (a plane of at most 4096 pixels, 34 x 60 and
+  smaller at 1080p) in ONE call for all their levels (``front="level"``, the default), or in one call of kernel K7
   (ops/kernels/blur_chain.py) per group of three levels
   (``front="chain"``, the JAX package's ``use_pallas="chain"``); both
   give the same planes bit for bit;
 * octave o>0 level 0 picks every second pixel of level L-3 of the
-  previous octave.
+  previous octave: K5's launch for that level writes it as a second
+  output (the chain front and the plain versions copy the slice).
 
 The blurs are the JAX package's shift-and-add stencils with the same
 terms in the same order: in K5, or in its plain version (plain f32
@@ -44,7 +46,9 @@ from ..config import SiftConfig
 from ..gauss import GaussTables, build_gauss_tables, full_kernel
 from ..utils.f32 import div
 from .kernels.blur_chain import blur_chain, blur_chain_torch
-from .kernels.blur_dog import _pad_edge, blur_dog, blur_dog_torch
+from .kernels.blur_dog import (THIN_MAX_OCTAVES, _pad_edge, blur_dog,
+                               blur_dog_thin, blur_dog_thin_torch,
+                               blur_dog_torch, pick_every_second, thin_fits)
 
 FRONTS = ("level", "chain")
 CHAIN_GROUP = 3    # levels fused per K7 launch, as the JAX front's group=3
@@ -176,12 +180,27 @@ def _octave0_level0(img: torch.Tensor, plan: PyramidPlan) -> torch.Tensor:
     return out.reshape(oh, ow)
 
 
+def first_thin_octave(plan: PyramidPlan, front: str = "level") -> int:
+    """Index of the first octave whose levels go through K5's one-launch
+    thin entry (every later octave does too); ``len(plan.dims)`` if none
+    does: only the level front has the entry, and it picks the next
+    octave from a level it writes."""
+    n_oct = len(plan.dims)
+    first = n_oct
+    if front == "level" and plan.config.total_levels - 3 >= 1:
+        while first > 0 and n_oct - first < THIN_MAX_OCTAVES and thin_fits(
+                *plan.dims[first - 1], plan.inc_kernels[1:]):
+            first -= 1
+    return first
+
+
 def build_pyramid_frames(imgs: torch.Tensor, plan: PyramidPlan,
                          plain: bool = False, front: str = "level"):
     """Pyramids of F same-sized frames, ``imgs`` [F, H, W] uint8 (or
     [0, 1] float32). Returns (blurs, dogs): tuples over octaves of
     f32[F, L, H, W] and f32[F, L-1, H, W] on the images' device. With
-    ``front="level"`` each level runs K5 once for all F frames, with
+    ``front="level"`` each level runs K5 once for all F frames and the
+    thin octaves run all their levels in one K5 launch, with
     ``front="chain"`` each group of three levels runs K7 once (their
     plain versions with ``plain``)."""
     cfg = plan.config
@@ -199,19 +218,21 @@ def build_pyramid_frames(imgs: torch.Tensor, plan: PyramidPlan,
     chain = blur_chain_torch if plain else blur_chain
     F = imgs.shape[0]
     total = cfg.total_levels
-    blurs, dogs = [], []
-    prev = None
-    for octv, (oh, ow) in enumerate(plan.dims):
-        levels = torch.empty((F, total, oh, ow), dtype=torch.float32,
-                             device=imgs.device)
-        dog = torch.empty((F, total - 1, oh, ow), dtype=torch.float32,
-                          device=imgs.device)
+    dev = imgs.device
+    blurs = [torch.empty((F, total, oh, ow), dtype=torch.float32, device=dev)
+             for oh, ow in plan.dims]
+    dogs = [torch.empty((F, total - 1, oh, ow), dtype=torch.float32,
+                        device=dev) for oh, ow in plan.dims]
+    src_lvl = total - 3     # the level the next octave is picked from
+    n_oct = len(blurs)
+    first_thin = first_thin_octave(plan, front)
+    for octv, (levels, dog) in enumerate(zip(blurs, dogs)):
         if octv == 0:
             for f in range(F):
                 levels[f, 0] = _octave0_level0(imgs[f], plan)
-        else:
-            # pick every second pixel (get_by_2_pick_every_second)
-            levels[:, 0] = prev[:, 0::2, 0::2][:, :oh, :ow]
+        if octv >= first_thin:
+            break
+        nxt = blurs[octv + 1][:, 0] if octv + 1 < n_oct else None
         if front == "chain":
             for l0 in range(1, total, CHAIN_GROUP):
                 l1 = min(total, l0 + CHAIN_GROUP)
@@ -220,10 +241,16 @@ def build_pyramid_frames(imgs: torch.Tensor, plan: PyramidPlan,
         else:
             for lvl in range(1, total):
                 blur_level(levels[:, lvl - 1], plan.inc_kernels[lvl],
-                           out=(levels[:, lvl], dog[:, lvl - 1]))
-        blurs.append(levels)
-        dogs.append(dog)
-        prev = levels[:, total - 3]
+                           out=(levels[:, lvl], dog[:, lvl - 1]),
+                           pick=nxt if lvl == src_lvl else None)
+        if nxt is not None and (front == "chain" or src_lvl < 1):
+            # pick every second pixel (get_by_2_pick_every_second)
+            nxt.copy_(pick_every_second(levels[:, src_lvl],
+                                        *nxt.shape[-2:]))
+    if first_thin < n_oct:
+        thin = blur_dog_thin_torch if plain else blur_dog_thin
+        thin(blurs[first_thin:], dogs[first_thin:],
+             list(plan.inc_kernels[1:]), src_lvl)
     return tuple(blurs), tuple(dogs)
 
 

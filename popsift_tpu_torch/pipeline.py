@@ -5,17 +5,20 @@ branch of ``extract`` (pipeline.py:237-406): the pyramid as dense
 per-octave stacks, per octave the candidate mask (K1) and compaction and
 the refinement (K2), ONE batched accept test over all octaves, per
 octave the orientation histograms (K3), one orientation tail, one
-segmented job build, per octave the descriptors (K4), then normalisation
-and the output tail (octave scaling, descriptor -> keypoint map).
+segmented job build, the descriptors of all octaves in one launch (K4),
+then normalisation and the output tail (octave scaling, descriptor ->
+keypoint map).
 
-Counts that size a kernel launch (candidates, jobs per octave) are read
-back to the host between stages; everything else stays on the device.
+Counts that size a kernel launch (candidates per octave) are read back
+to the host between stages; the descriptor kernel reads the jobs' valid
+flags on the device. Everything else stays on the device.
 
 :func:`extract_batch` is the frame-batched form (pipeline.py:409-753 on
 dense stacks): F frames' pyramids share one K5 launch per level, each
 octave's stacks hold the frames back to back on the layer axis
 ([F*L, H, W] and [F*(L-1), H, W]), K1 and K2 run once per octave for all
-frames, and K3/K4 address frame f's level l as layer f*L + l. Every
+frames, K3 runs once per octave and K4 once for the whole batch, both
+addressing frame f's level l as layer f*L + l. Every
 output gains a leading [F] axis. ``extract_batch`` of one frame equals
 ``extract`` but runs more host glue (its live-row gathers and scatters),
 so the single-frame path keeps its own stages (PERF.md §6).
@@ -184,26 +187,20 @@ def extract(img, plan: ExtractPlan, device, *, plain: bool = False,
     oris = _ori.orientations_from_histograms(torch.cat(hists), g.valid,
                                              smoothing=cfg.ori_smoothing)
 
-    # descriptors: one segmented job build, per-octave kernels
+    # descriptors: one segmented job build, one K4 launch over the rows of
+    # all octaves (the kernel reads ``valid``; no count comes back)
     segs = tuple((int(offs[o]), caps[o], plan.job_caps[o])
                  for o in range(len(caps)))
-    jobs_all, counts = _desc.make_descriptor_jobs_segmented(
+    jobs_all, _ = _desc.make_descriptor_jobs_segmented(
         g.x, g.y, g.sigma, g.level, oris.ori, oris.ori_valid, segs)
     jobs_off = np.concatenate([[0], np.cumsum(plan.job_caps)]).astype(int)
-    counts_host = counts.tolist()
-    raw, job_kps = [], []
-    for o in range(len(caps)):
-        jsl = slice(int(jobs_off[o]), int(jobs_off[o + 1]))
-        jobs = _desc.DescriptorJobs(
-            x=jobs_all.x[jsl], y=jobs_all.y[jsl], sigma=jobs_all.sigma[jsl],
-            level=jobs_all.level[jsl], ang=jobs_all.ang[jsl],
-            kp_index=jobs_all.kp_index[jsl], valid=jobs_all.valid[jsl],
-            count=counts_host[o])
-        raw.append(_desc.compute_descriptors(blurs[o], jobs, cfg, plain))
-        job_kps.append(jobs.kp_index + int(offs[o]))
+    raw = _desc.compute_descriptors_octaves(blurs, jobs_all, jobs_off[1:],
+                                            cfg, plain)
+    desc_kp = jobs_all.kp_index + torch.as_tensor(
+        np.repeat(offs[:-1], plan.job_caps), device=dev)
 
     desc_valid = jobs_all.valid
-    desc = _desc.normalize_descriptors(torch.cat(raw), cfg)
+    desc = _desc.normalize_descriptors(raw, cfg)
     desc = torch.where(desc_valid[:, None], desc, torch.zeros_like(desc))
 
     scale_row = torch.as_tensor(
@@ -220,7 +217,7 @@ def extract(img, plan: ExtractPlan, device, *, plain: bool = False,
         ori=oris.ori,
         ori_valid=oris.ori_valid,
         desc=desc,
-        desc_kp=torch.cat(job_kps),
+        desc_kp=desc_kp,
         desc_valid=desc_valid,
         n_keypoints=g.valid.sum(),
         n_descriptors=desc_valid.sum(),
@@ -322,28 +319,25 @@ def extract_batch(imgs, plan: ExtractPlan, device, *, plain: bool = False,
                                              smoothing=cfg.ori_smoothing)
 
     # descriptors: one job build over all (octave, frame) segments, then
-    # per octave one K4 launch over all frames' live jobs
+    # one K4 launch over every row (octave-major: octave o's F segments
+    # end at row F * jobs_off[o + 1])
     segs, lev_offs = [], []
     for o in range(n_oct):
         for f in range(F):
             segs.append((f * Ktot + int(offs[o]), caps[o], plan.job_caps[o]))
             lev_offs.append(f * L)
-    jobs_all, seg_counts = _desc.make_descriptor_jobs_segmented(
+    jobs_all, _ = _desc.make_descriptor_jobs_segmented(
         g.x, g.y, g.sigma, g.level, oris.ori, oris.ori_valid, tuple(segs),
         level_offsets=tuple(lev_offs))
-    counts_host = seg_counts.view(n_oct, F).tolist()
     jobs_off = np.concatenate([[0], np.cumsum(plan.job_caps)]).astype(int)
     Jtot = int(jobs_off[-1])
+    raw_all = _desc.compute_descriptors_octaves(
+        blurs, jobs_all, jobs_off[1:] * F, cfg, plain)
     raw, job_kps, job_valids = [], [], []
     for o in range(n_oct):
         jcap = plan.job_caps[o]
         jsl = slice(int(jobs_off[o]) * F, int(jobs_off[o]) * F + F * jcap)
-        live = torch.as_tensor(_live_rows(counts_host[o], jcap), device=dev)
-        jobs = _desc.DescriptorJobs(*(a[jsl][live] for a in jobs_all[:7]),
-                                    count=live.numel())
-        raw_o = torch.zeros((F * jcap, 128), dtype=torch.float32, device=dev)
-        raw_o[live] = _desc.compute_descriptors(blurs[o], jobs, cfg, plain)
-        raw.append(raw_o.view(F, jcap, 128))
+        raw.append(raw_all[jsl].view(F, jcap, 128))
         job_kps.append(jobs_all.kp_index[jsl].view(F, jcap) + int(offs[o]))
         job_valids.append(jobs_all.valid[jsl].view(F, jcap))
 

@@ -11,6 +11,8 @@ and refinement state exact (the kernels are built with -fmad=false and
 follow the plain version op for op); histograms and descriptors, the
 patch-fed and bucketed entries included, within 1e-5 x the row's max
 (fixed-order sums in another order than the plain version's reductions).
+K4's launch over several octaves equals its single-octave launches bit
+for bit, and two runs of it give the same bits.
 """
 
 import math
@@ -100,6 +102,132 @@ def test_descriptor_kernel(dev):
     got = desc.descriptor_loop(blur, x, y, s, lv, ang, valid, 150, 50)
     ref = desc.descriptor_loop_torch(blur, x, y, s, lv, ang, valid, 150, 50)
     assert torch.all(got[150:] == 0) and _rel_rows(got, ref)
+
+
+def _job_cases(dev, case, L, H, W, n):
+    """Jobs that stress the tile boxes: keypoints within a pixel or two
+    of every border, supports wider than the static window (sigma past
+    the accept limit's 4.53), and angles at and next to the multiples of
+    pi/4 where a box is tightest or widest."""
+    x, y, s, lv, ang, _ = _keypoints(dev, L, H, W, n, seed=11)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    if case == "border":
+        edge = np.array([0.2, 1.0, 1.6, 2.4])
+        x[:16] = f(np.concatenate([edge, W - 1 - edge, np.full(8, W / 2)]))
+        y[:16] = f(np.concatenate([np.full(8, H / 2), edge, H - 1 - edge]))
+        x[16:20] = f([0.3, W - 1.2, 0.7, W - 1.4])
+        y[16:20] = f([0.4, 0.6, H - 1.3, H - 1.1])
+    elif case == "large_sigma":
+        s = f(np.random.default_rng(12).uniform(4.4, 5.7, n))
+    else:
+        sweep = np.arange(-8, 9) * (math.pi / 8)
+        ang[:51] = f(np.concatenate([sweep, sweep + 1e-4, sweep - 1e-4]))
+    return x, y, s, lv, ang, torch.ones(n, dtype=torch.bool, device=dev)
+
+
+@pytest.mark.parametrize("case", ["border", "large_sigma", "angles"])
+def test_descriptor_kernel_cases(dev, case):
+    """K4 against its plain version where a tile box that is too tight,
+    or clipped wrongly, would lose weight."""
+    L, H, W, n, radius = 6, 140, 170, 96, 51
+    blur = torch.rand((L, H, W), device=dev) * 255
+    x, y, s, lv, ang, valid = _job_cases(dev, case, L, H, W, n)
+    got = desc.descriptor_loop(blur, x, y, s, lv, ang, valid, n, radius)
+    ref = desc.descriptor_loop_torch(blur, x, y, s, lv, ang, valid, n,
+                                     radius)
+    assert ref.abs().sum() > 0 and _rel_rows(got, ref)
+
+
+def test_descriptor_octaves_kernel(dev):
+    """One launch over three octaves equals the three single-octave
+    launches bit for bit, skips rows that are not valid, counts one
+    launch, and gives the same bits twice."""
+    radius = 51
+    shapes = [(6, 140, 170, 96), (6, 70, 85, 40), (12, 35, 43, 24)]
+    blurs, cols, singles, ends = [], [], [], []
+    for i, (L, H, W, n) in enumerate(shapes):
+        blur = torch.rand((L, H, W), device=dev) * 255
+        x, y, s, lv, ang, valid = _keypoints(dev, L, H, W, n, seed=20 + i)
+        s = s.clamp(max=0.04 * min(H, W) + 1.2)
+        blurs.append(blur)
+        cols.append((x, y, s, lv, ang, valid))
+        singles.append(desc.descriptor_loop(blur, x, y, s, lv, ang, valid,
+                                            n, radius))
+        ends.append(n + (ends[-1] if ends else 0))
+    args = [torch.cat([c[i] for c in cols]) for i in range(6)]
+    b0, b1 = desc.launches_octaves, desc.launches
+    got = desc.descriptor_loop_octaves(blurs, ends, *args, radius)
+    assert (desc.launches_octaves, desc.launches) == (b0 + 1, b1)
+    assert torch.equal(got, torch.cat(singles))
+    assert torch.all(got[~args[5]] == 0) and got[args[5]].abs().sum() > 0
+    again = desc.descriptor_loop_octaves(blurs, ends, *args, radius)
+    assert torch.equal(got, again)
+    ref = desc.descriptor_loop_octaves_torch(blurs, ends, *args, radius)
+    assert _rel_rows(got, ref)
+
+
+@pytest.mark.parametrize("shape", [(9, 15), (75, 131), (200, 260)])
+@pytest.mark.parametrize("span", [0, 1, 5, 13, 24])
+@pytest.mark.parametrize("with_pick", [False, True])
+def test_blur_dog_kernel_spans(dev, shape, span, with_pick):
+    """K5 equals its plain version bit for bit for every filter class
+    (S <= 8, <= 16, <= 24), on planes smaller than a strip and than the
+    filter, on strided planes of a [N, L, H, W] stack, and with the pick
+    of every second pixel into a strided plane of another stack."""
+    rng = np.random.default_rng(span)
+    k = rng.random(2 * span + 1).astype(np.float32)
+    k = (k + k[::-1]) / (2 * k.sum())
+    gen = torch.Generator(device="cpu").manual_seed(span)
+    stack = (torch.rand((2, 4, *shape), generator=gen) * 255).to(dev)
+    oh, ow = (shape[0] + 1) // 2, (shape[1] + 1) // 2
+    nxt = torch.full((2, 3, oh, ow), -1.0, device=dev)
+    want = blur_dog.blur_dog_torch(stack[:, 1], k)
+    got = blur_dog.blur_dog(stack[:, 1], k, out=(stack[:, 2], stack[:, 3]),
+                            pick=nxt[:, 1] if with_pick else None)
+    torch.cuda.synchronize(dev)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if with_pick:
+        assert torch.equal(nxt[:, 1], want[0][:, 0::2, 0::2][:, :oh, :ow])
+    assert torch.all(nxt[:, 0] == -1) and torch.all(nxt[:, 2] == -1)
+
+
+@pytest.mark.parametrize("dims", [[(34, 60), (17, 30), (9, 15)],
+                                  [(57, 71), (29, 36)], [(9, 15)]])
+def test_blur_dog_thin_kernel(dev, dims):
+    """K5's one launch over several thin octaves of three frames equals
+    its plain version and the level-by-level launches bit for bit, the
+    picks between octaves included; one launch is counted."""
+    ks = _chain_kernels()
+    L = len(ks) + 1
+    gen = torch.Generator(device="cpu").manual_seed(dims[0][0])
+    mk = lambda n, h, w: (torch.rand((3, n, h, w), generator=gen)
+                          * 255).to(dev)
+    blurs = [mk(L, h, w) for h, w in dims]
+    dogs = [mk(L - 1, h, w) for h, w in dims]
+    want_b = [b.clone() for b in blurs]
+    want_d = [d.clone() for d in dogs]
+    blur_dog.blur_dog_thin_torch(want_b, want_d, ks, L - 3)
+    level_b = [b.clone() for b in blurs]
+    level_d = [d.clone() for d in dogs]
+    for o in range(len(dims)):
+        nxt = level_b[o + 1][:, 0] if o + 1 < len(dims) else None
+        for l, k in enumerate(ks, start=1):
+            blur_dog.blur_dog(level_b[o][:, l - 1], k,
+                              out=(level_b[o][:, l], level_d[o][:, l - 1]),
+                              pick=nxt if l == L - 3 else None)
+    before = (blur_dog.launches_thin, blur_dog.launches)
+    blur_dog.blur_dog_thin(blurs, dogs, ks, L - 3)
+    torch.cuda.synchronize(dev)
+    assert (blur_dog.launches_thin, blur_dog.launches) == (before[0] + 1,
+                                                           before[1])
+    for o in range(len(dims)):
+        assert torch.equal(blurs[o], want_b[o]), o
+        assert torch.equal(dogs[o], want_d[o]), o
+        assert torch.equal(blurs[o], level_b[o]), o
+        assert torch.equal(dogs[o], level_d[o]), o
+    with pytest.raises(ValueError, match="blur_dog_thin"):
+        big = [torch.zeros((1, L, 135, 240), device=dev)]
+        blur_dog.blur_dog_thin(big, [big[0][:, 1:].contiguous()], ks, L - 3)
 
 
 @pytest.mark.parametrize("level", [1, 5])

@@ -1,0 +1,221 @@
+"""The CUDA sources of K4 and K5 on the CPU, against their plain versions.
+
+``popsift_tpu_torch/tools/host_mock.py`` compiles ``csrc/desc.cu`` and
+``csrc/blur_dog.cu`` with g++ against a stand-in for the CUDA runtime
+(one std::thread per CUDA thread) and the tests call the C entry points
+on CPU tensors: the kernels' own indexing, tile boxes, rings, bands and
+summation order run here, not a model of them. They need g++ and skip
+without it. Tolerances as on the card: blur and DoG levels and the pick
+bit-equal (``-ffp-contract=off`` mirrors ``-fmad=false``), descriptors
+within 1e-5 x the row's max of the plain version (another summation
+order), the launch over several octaves bit-equal to the single-octave
+launches.
+"""
+
+import ctypes
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from popsift_tpu_torch.ops import patches
+from popsift_tpu_torch.ops.kernels import blur_dog as K5
+from popsift_tpu_torch.ops.kernels import build
+from popsift_tpu_torch.ops.kernels import desc as K4
+from popsift_tpu_torch.tools import host_mock
+
+torch.set_num_threads(1)
+
+
+def _library(name):
+    if host_mock.find_compiler() is None:
+        pytest.skip("needs g++ to compile the kernel source for the CPU")
+    lib = ctypes.CDLL(host_mock.build(name))
+    for fn, args in build._SIGNATURES.items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = list(args)
+            getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+@pytest.fixture(scope="module")
+def blur_lib():
+    return _library("blur_dog")
+
+
+@pytest.fixture(scope="module")
+def desc_lib():
+    return _library("desc")
+
+
+@pytest.mark.parametrize("shape", [(9, 15), (75, 131), (200, 260)])
+@pytest.mark.parametrize("span", [0, 1, 5, 10, 13, 24])
+def test_blur_dog_source(blur_lib, shape, span):
+    """Strided planes, a plane smaller than the filter and the strip,
+    several bands and strips, every shared-memory size class, the pick."""
+    rng = np.random.default_rng(span + shape[0])
+    k = rng.random(2 * span + 1).astype(np.float32)
+    k = (k + k[::-1]) / (2 * k.sum())
+    stack = torch.from_numpy(
+        rng.random((2, 4, *shape)).astype(np.float32) * 255)
+    src = stack[:, 1]
+    want = K5.blur_dog_torch(src, k)
+    oh, ow = (shape[0] + 1) // 2, (shape[1] + 1) // 2
+    nxt = torch.full((2, 3, oh, ow), -1.0)
+    taps = np.ascontiguousarray(k[span:])
+    rc = blur_lib.ps_blur_dog(
+        src.data_ptr(), src.stride(0), stack[:, 2].data_ptr(),
+        stack.stride(0), stack[:, 3].data_ptr(), stack.stride(0),
+        nxt[:, 1].data_ptr(), nxt.stride(0), oh, ow, 2, *shape,
+        taps.ctypes.data, span, None)
+    assert rc == 0
+    assert torch.equal(stack[:, 2], want[0])
+    assert torch.equal(stack[:, 3], want[1])
+    assert torch.equal(nxt[:, 1], K5.pick_every_second(want[0], oh, ow))
+    assert torch.all(nxt[:, 0] == -1) and torch.all(nxt[:, 2] == -1)
+
+
+def test_blur_dog_source_refuses_a_wide_filter(blur_lib):
+    z = torch.zeros((1, 4, 4))
+    taps = np.zeros(26, np.float32)
+    assert blur_lib.ps_blur_dog(
+        z.data_ptr(), 16, z.data_ptr(), 16, z.data_ptr(), 16, None, 0, 0, 0,
+        1, 4, 4, taps.ctypes.data, 25, None) != 0
+
+
+@pytest.mark.parametrize("dims", [[(68, 120), (34, 60), (17, 30), (9, 15)],
+                                  [(21, 33), (11, 17)], [(9, 15)]])
+def test_blur_dog_thin_source(blur_lib, dims):
+    """All levels of several thin octaves of two frames in one launch,
+    picks between them included, bit-equal to the plain level blurs."""
+    from popsift_tpu_torch.config import SiftConfig
+    from popsift_tpu_torch.gauss import build_gauss_tables, full_kernel
+    cfg = SiftConfig()
+    tables = build_gauss_tables(cfg)
+    L = cfg.total_levels
+    ks = [full_kernel(tables.inc[l], int(tables.inc_span[l]))
+          for l in range(1, L)]
+    rng = np.random.default_rng(dims[0][0])
+    mk = lambda n, h, w: torch.from_numpy(
+        rng.random((2, n, h, w)).astype(np.float32) * 255)
+    blurs = [mk(L, h, w) for h, w in dims]
+    dogs = [mk(L - 1, h, w) for h, w in dims]
+    want_b = [b.clone() for b in blurs]
+    want_d = [d.clone() for d in dogs]
+    K5.blur_dog_thin_torch(want_b, want_d, ks, L - 3)
+    table = np.asarray([[b.data_ptr(), d.data_ptr(), *b.shape[2:]]
+                        for b, d in zip(blurs, dogs)], np.int64)
+    spans = np.asarray([(k.shape[0] - 1) // 2 for k in ks], np.int32)
+    taps = np.zeros((L - 1, K5.MAX_S + 1), np.float32)
+    for row, k, S in zip(taps, ks, spans):
+        row[:S + 1] = k[S:]
+    rc = blur_lib.ps_blur_dog_thin(table.ctypes.data, len(dims), 2, L, L - 3,
+                                   taps.ctypes.data, spans.ctypes.data, None)
+    assert rc == 0
+    for o in range(len(dims)):
+        assert torch.equal(blurs[o], want_b[o]), o
+        assert torch.equal(dogs[o], want_d[o]), o
+    assert K5.thin_fits(9, 15, ks) and not K5.thin_fits(135, 240, ks)
+    # a first plane beyond a third of the shared memory is refused
+    table[0, 2:] = (135, 240)
+    assert blur_lib.ps_blur_dog_thin(
+        table.ctypes.data, 1, 2, L, L - 3, taps.ctypes.data,
+        spans.ctypes.data, None) != 0
+
+
+def _jobs(rng, L, H, W, n, case):
+    x = rng.uniform(0, W - 1, n).astype(np.float32)
+    y = rng.uniform(0, H - 1, n).astype(np.float32)
+    s = rng.uniform(1.2, 0.02 * min(H, W) + 1.6, n).astype(np.float32)
+    ang = rng.uniform(-math.pi, math.pi, n).astype(np.float32)
+    if case == "border":
+        x[:8] = [0.2, W - 1.3, 1.0, W - 2.0, W / 2, W / 2, 3.3, W - 4.1]
+        y[:8] = [0.4, H - 1.2, H / 2, H / 2, 1.0, H - 2.0, H - 3.7, 2.2]
+    elif case == "angles":
+        ang[:8] = [0, math.pi / 4, math.pi / 2, -math.pi / 4, 1e-4,
+                   math.pi / 2 - 1e-4, math.pi, -math.pi / 2]
+    elif case == "wide":            # supports past the static window
+        s = rng.uniform(4.4, 5.7, n).astype(np.float32)
+    valid = rng.random(n) < 0.85
+    valid[:8] = True
+    return [torch.from_numpy(a) for a in
+            (x, y, s, rng.integers(0, L, n).astype(np.int32), ang, valid)]
+
+
+def _single(lib, blur, x, y, s, lv, ang, valid, radius):
+    out = torch.zeros((x.shape[0], 128))
+    v8 = valid.to(torch.uint8)
+    rc = lib.ps_descriptor_loop(
+        blur.data_ptr(), *blur.shape, x.data_ptr(), y.data_ptr(),
+        s.data_ptr(), lv.data_ptr(), ang.data_ptr(), v8.data_ptr(),
+        x.shape[0], radius, out.data_ptr(), None)
+    assert rc == 0
+    return out
+
+
+def _within(got, ref):
+    rowmax = ref.abs().amax(1, keepdim=True)
+    return bool(((got - ref).abs() <= 1e-5 * rowmax + 1e-30).all())
+
+
+@pytest.mark.parametrize("case,shape", [
+    ("border", (6, 120, 150)), ("angles", (6, 120, 150)),
+    ("wide", (6, 140, 170)), ("border", (4, 30, 40))])
+def test_descriptor_source(desc_lib, case, shape):
+    rng = np.random.default_rng(len(case) + shape[1])
+    blur = torch.from_numpy(rng.random(shape).astype(np.float32) * 255)
+    job = _jobs(rng, *shape, 16, case)
+    got = _single(desc_lib, blur, *job, 51)
+    ref = K4.descriptor_loop_torch(blur, job[0], job[1], job[2],
+                                   job[3].long(), job[4], job[5], 16, 51)
+    assert ref.abs().sum() > 0 and _within(got, ref)
+    assert torch.all(got[~job[5]] == 0)
+
+
+def test_descriptor_source_over_octaves(desc_lib):
+    rng = np.random.default_rng(3)
+    sets, singles, table, end = [], [], [], 0
+    for L, H, W, n in [(6, 96, 120, 12), (6, 48, 60, 9), (12, 24, 30, 8)]:
+        blur = torch.from_numpy(rng.random((L, H, W)).astype(np.float32)
+                                * 255)
+        job = _jobs(rng, L, H, W, n, "border")
+        sets.append((blur, job))
+        singles.append(_single(desc_lib, blur, *job, 51))
+        end += n
+        table.append([blur.data_ptr(), L, H, W, end])
+    table = np.asarray(table, np.int64)
+    cat = [torch.cat([j[i] for _, j in sets]).contiguous() for i in range(6)]
+    v8 = cat[5].to(torch.uint8)
+    out = torch.zeros((end, 128))
+    rc = desc_lib.ps_descriptor_loop_octaves(
+        table.ctypes.data, 3, cat[0].data_ptr(), cat[1].data_ptr(),
+        cat[2].data_ptr(), cat[3].data_ptr(), cat[4].data_ptr(),
+        v8.data_ptr(), 51, out.data_ptr(), None)
+    assert rc == 0 and torch.equal(out, torch.cat(singles))
+    ref = K4.descriptor_loop_octaves_torch(
+        [b for b, _ in sets], [int(r[4]) for r in table], cat[0], cat[1],
+        cat[2], cat[3].long(), cat[4], cat[5], 51)
+    assert _within(out, ref)
+
+
+def test_descriptor_source_patch_entry(desc_lib):
+    rng = np.random.default_rng(4)
+    L, H, W, n = 6, 120, 150, 12
+    blur = torch.from_numpy(rng.random((L, H, W)).astype(np.float32) * 255)
+    x, y, s, lv, ang, valid = _jobs(rng, L, H, W, n, "angles")
+    x, y = x.clamp(2, W - 3), y.clamp(2, H - 3)
+    p, y0, x0 = patches.extract_patches_rect(
+        patches.pad_for_patches(blur, 128), lv.long(), torch.round(y).long(),
+        torch.round(x).long(), 104, 128, 50, 50)
+    p = p.contiguous()
+    y0, x0 = y0.to(torch.int32), x0.to(torch.int32)
+    v8 = valid.to(torch.uint8)
+    out = torch.zeros((n, 128))
+    rc = desc_lib.ps_descriptor_loop_patches(
+        p.data_ptr(), 104, 128, H, W, y0.data_ptr(), x0.data_ptr(),
+        x.data_ptr(), y.data_ptr(), s.data_ptr(), ang.data_ptr(),
+        v8.data_ptr(), n, out.data_ptr(), None)
+    ref = K4.descriptor_loop_patches_torch(p, y0, x0, x, y, s, ang, valid,
+                                           H, W)
+    assert rc == 0 and ref.abs().sum() > 0 and _within(out, ref)
