@@ -13,10 +13,14 @@ any failed phase raises and the script exits non-zero:
    the shapes the main path gives it on a 1920x1080 frame
    (``bench.make_frame``, seed 0): blur/DoG levels (K5) exact or within
    1e-4 on the 0..255 scale and its pick of every second pixel equal to
-   the slice, masks exact, refinement state within 1e-5
+   the slice, masks exact (K1's one launch over all octaves, its
+   single-octave entry and, on four frames, seeds 0-3, its batched entry
+   and its one launch over all octaves of the batch), refinement state
+   within 1e-5
    with the accept masks exact, histograms and descriptors within 1e-5 x
-   the row's max; the batched entries of K1 and K2 on four frames
-   (seeds 0-3), exact; the window copy K6 and its batched entry, exact;
+   the row's max; K3's one launch over all octaves bit-equal to its
+   single-octave launches and to a second run; the batched entry of K2 on
+   the four frames, exact; the window copy K6 and its batched entry, exact;
    K5's one launch over the thin octaves (34 x 60 and smaller) bit-equal
    to its plain version and to the planes of the level launches;
    the chain front K7 on every octave against K5's planes (bit-equal, or
@@ -34,37 +38,41 @@ any failed phase raises and the script exits non-zero:
 4. the main path ``PopSift(SiftConfig(extrema_capacity=8192),
    device="cuda").enqueue(frame).get()`` with every launch counter reset
    just before it: 2110 keypoints / 2505 descriptors, no dropped
-   candidate, every kernel of the path launched, K4 exactly once (over
-   all octaves) and its single-octave entry not at all; finite outputs;
+   candidate, every kernel of the path launched, K1, K3 and K4 exactly
+   once (over all octaves) and their single-octave entries not at all;
+   finite outputs;
    the two golden scenes (tests/golden) within the golden tolerances; warm
    ms/frame of the kernel path and of the plain-PyTorch path on the
    card, and the counts of the ``SiftConfig()`` default;
 5. the batch path ``enqueue_batch`` of the four frames, counters reset
    just before it: K5 once per level of the wide octaves and once for
-   all thin octaves, batched K1 and K2 once
-   per octave, K4 once for the whole batch; each frame equal to its own
+   all thin octaves, batched K2 once per octave, K1, K3 and K4 once for
+   the whole batch; each frame equal to its own
    ``enqueue`` (counts, masks and integer fields exact, float fields
    bit-equal or within 1e-6 x the field's magnitude); warm ms/frame of the batch against single-frame
    ``enqueue`` and the plain batch; then ``PopSift.calibrate([frame])``
    with the counters reset just before it (its detect-only probe
-   launches K5 and the dense K1 entry and nothing else) and ``enqueue``:
+   launches K5 and K1, once over all octaves, and nothing else) and
+   ``enqueue``:
    no octave saturates its calibrated capacity;
 6. the other routes at full 1080p width, counters reset before each run:
    ``PopSift(cfg, device="cuda", detect="windows")`` ``.enqueue`` and
    ``.enqueue_batch`` (2110 / 2505 on frame 0, nothing dropped, K6 once
-   per octave and K2 not at all, every frame equal to its
-   ``detect="fused"`` result); ``front="chain"`` the same way (K7
-   launched, K5 not); the entries that no extraction path calls (the
-   patch entry of K4, the bucketed launches of K3 and K4 with K4's
-   single-octave entry beneath them) driven once on
+   per octave and K2 not at all, K1, K3 and K4 once a run, every frame
+   equal to its ``detect="fused"`` result); ``front="chain"`` the same
+   way (K7 launched, K5 not); the entries that no extraction path calls
+   (the patch entry of K4, the bucketed launches of K3 and K4 with their
+   single-octave entries beneath them, the single-octave and batched
+   entries of K1) driven once on
    the densest octave's rows; warm ms/frame of each route, interleaved
    with the default route.
 
 TF32 is switched off for matmuls and cuDNN (the plain versions must run
 in full f32). The second line before the last is a JSON object with one
 entry per kernel entry (``launches`` from the run of its path: phase 4
-for the single-frame entries, phase 5 for the batched ones, phase 6 for
-the window copy, the chain front and the entries off every path); the
+for the entries of the single-frame path, phase 5 for batched K2, phase
+6 for the window copy, the chain front and the entries off every path);
+the
 last line is the device record. ``--profile DIR`` also writes a
 torch.profiler table of one run of the main path, of the window route
 and of the chain front to DIR/profile*.txt and prints each run's
@@ -91,32 +99,38 @@ FRAME_HW = (1080, 1920)
 N_FRAMES = 4           # the batch of phases 3 and 5: make_frame seeds 0..3
 BENCH_KEYPOINTS, BENCH_DESCRIPTORS = 2110, 2505
 # kernel entries of each path (phase 4: single frame, phase 5: batch)
-MAIN_PATH = ("blur_dog", "blur_dog_thin", "extrema_mask", "refine",
-             "orientation_hist", "descriptor_loop_octaves")
-BATCH_PATH = ("blur_dog", "blur_dog_thin", "extrema_mask_batched",
-              "refine_batched", "orientation_hist", "descriptor_loop_octaves")
+MAIN_PATH = ("blur_dog", "blur_dog_thin", "extrema_mask_octaves", "refine",
+             "orientation_hist_octaves", "descriptor_loop_octaves")
+BATCH_PATH = ("blur_dog", "blur_dog_thin", "extrema_mask_octaves",
+              "refine_batched", "orientation_hist_octaves",
+              "descriptor_loop_octaves")
 # the calibration probe
-PROBE_PATH = ("blur_dog", "blur_dog_thin", "extrema_mask")
+PROBE_PATH = ("blur_dog", "blur_dog_thin", "extrema_mask_octaves")
 # phase 6: the window route (single, batch), the chain front, and the
 # entries that no extraction path calls
-WINDOW_PATH = ("blur_dog", "blur_dog_thin", "extrema_mask",
-               "extract_windows", "orientation_hist",
+WINDOW_PATH = ("blur_dog", "blur_dog_thin", "extrema_mask_octaves",
+               "extract_windows", "orientation_hist_octaves",
                "descriptor_loop_octaves")
-WINDOW_BATCH_PATH = ("blur_dog", "blur_dog_thin", "extrema_mask_batched",
-                     "extract_windows_batched", "orientation_hist",
+WINDOW_BATCH_PATH = ("blur_dog", "blur_dog_thin", "extrema_mask_octaves",
+                     "extract_windows_batched", "orientation_hist_octaves",
                      "descriptor_loop_octaves")
-CHAIN_PATH = ("blur_chain", "extrema_mask", "refine", "orientation_hist",
-              "descriptor_loop_octaves")
-# the single-octave K4 entry runs beneath the bucketed one
+CHAIN_PATH = ("blur_chain", "extrema_mask_octaves", "refine",
+              "orientation_hist_octaves", "descriptor_loop_octaves")
+# the single-octave K3 and K4 entries run beneath the bucketed ones
 OFF_PATH = ("descriptor_loop_patches", "orientation_hist_bucketed",
-            "descriptor_loop_bucketed", "descriptor_loop")
+            "descriptor_loop_bucketed", "descriptor_loop", "orientation_hist",
+            "extrema_mask", "extrema_mask_batched")
+# the launches over all octaves: exactly once on every extraction path
+ONCE = ("extrema_mask_octaves", "orientation_hist_octaves",
+        "descriptor_loop_octaves")
 # which run's counts a kernel entry reports in the JSON line
 LAUNCHES_FROM = {
-    "blur_dog": "main", "blur_dog_thin": "main", "extrema_mask": "main",
-    "refine": "main",
-    "orientation_hist": "main", "descriptor_loop_octaves": "main",
-    "descriptor_loop": "off_path",
-    "extrema_mask_batched": "batch", "refine_batched": "batch",
+    "blur_dog": "main", "blur_dog_thin": "main",
+    "extrema_mask_octaves": "main", "refine": "main",
+    "orientation_hist_octaves": "main", "descriptor_loop_octaves": "main",
+    "descriptor_loop": "off_path", "extrema_mask": "off_path",
+    "extrema_mask_batched": "off_path", "orientation_hist": "off_path",
+    "refine_batched": "batch",
     "extract_windows": "windows", "extract_windows_batched": "windows_batch",
     "blur_chain": "chain", "descriptor_loop_patches": "off_path",
     "orientation_hist_bucketed": "off_path",
@@ -412,12 +426,27 @@ def kernels_phase(frames: list, dev, reps: int = 20) -> list:
         sync(dev)
         err = max(err, int((k != p).sum()))
     check(err == 0, f"K1 mask differs from its plain version in {err} px")
+    mask_plain_ms = median_ms(
+        lambda: [extrema_mask.candidate_mask_torch(d, thr1) for d in dstk],
+        dev, reps)
     row(extrema_mask.NAME, float(err),
         median_ms(lambda: [extrema_mask.candidate_mask(d, thr1)
                            for d in dstk], dev, reps),
-        median_ms(lambda: [extrema_mask.candidate_mask_torch(d, thr1)
-                           for d in dstk], dev, reps),
-        mask_bound(1))
+        mask_plain_ms, mask_bound(1),
+        what=f"per frame as {nO} single-octave launches")
+    # one launch over all octaves, as the extraction path has it
+    mk = extrema_mask.candidate_mask_octaves(dstk, thr1)
+    sync(dev)
+    err = sum(int((k[0] != extrema_mask.candidate_mask_torch(d, thr1)
+                   .view(torch.bool)).sum()) for k, d in zip(mk, dstk))
+    check(err == 0 and all(k.dtype == torch.bool for k in mk),
+          f"K1 over all octaves differs from its plain version in {err} px")
+    say(f"K1 over all {nO} octaves in one launch: bool masks, bit-equal to "
+        f"the plain version")
+    del mk
+    row(extrema_mask.NAME_OCTAVES, float(err),
+        median_ms(lambda: extrema_mask.candidate_mask_octaves(dstk, thr1),
+                  dev, reps), mask_plain_ms, mask_bound(1))
 
     # K2 refine: a candidate's coordinates and 27 neighbours read at least
     # once and its 16-float state written (every capacity row is written);
@@ -511,9 +540,28 @@ def kernels_phase(frames: list, dev, reps: int = 20) -> list:
         float(((2 * rad + 1) ** 2).sum()) * 40)
     ori_ms = median_ms(lambda: [orient.orientation_hist(*a) for a in oargs],
                        dev, reps)
-    row(orient.NAME, float((hk - hp).abs().max()), ori_ms,
-        median_ms(lambda: [orient.orientation_hist_torch(*a)
-                           for a in oargs], dev, reps), ori_bound)
+    ori_plain_ms = median_ms(lambda: [orient.orientation_hist_torch(*a)
+                                      for a in oargs], dev, reps)
+    row(orient.NAME, float((hk - hp).abs().max()), ori_ms, ori_plain_ms,
+        ori_bound, what=f"per frame as {sum(n > 0 for n in nf)} single-octave "
+                        f"launches")
+    # one launch over the rows of all octaves, as the extraction path has it
+    hargs_all = (list(blurs), [int(e) for e in offs[1:]], g.x, g.y, g.sigma,
+                 g.level, g.valid, R)
+    ho = orient.orientation_hist_octaves(*hargs_all)
+    rel = rel_row_err(ho, hp)
+    check(rel <= 1e-5, f"K3 over all octaves differs by {rel} x row max")
+    check(bool(torch.equal(ho, hk)), "K3's launch over all octaves differs "
+          "from its single-octave launches")
+    check(bool(torch.equal(ho, orient.orientation_hist_octaves(*hargs_all))),
+          "two runs of K3 differ")
+    say(f"K3 over all {nO} octaves in one launch: within {rel:.3g} x row max "
+        f"of its plain version, bit-equal to the single-octave launches and "
+        f"to a second run")
+    row(orient.NAME_OCTAVES, float((ho - hp).abs().max()),
+        median_ms(lambda: orient.orientation_hist_octaves(*hargs_all), dev,
+                  reps), ori_plain_ms, ori_bound)
+    del ho
 
     # bucketed launches of K3: the same rows through two launches an octave
     split = cfg.sigma * 2.0 ** (2.5 / cfg.levels)
@@ -651,6 +699,7 @@ def kernels_phase(frames: list, dev, reps: int = 20) -> list:
         what=f"on octave {od}'s {jn} jobs (K4 on the same jobs: "
              f"{k4_ms:.4f} ms)")
     del blurs, dogs, bargs, args, oargs, oargs_all, dargs, wargs, bo, bd
+    del hargs_all, dstk
     del pt, pargs
 
     # batched K1 and K2 on all frames' stacks (frames back to back on the
@@ -672,7 +721,20 @@ def kernels_phase(frames: list, dev, reps: int = 20) -> list:
                            for d in bdogs], dev, reps),
         median_ms(lambda: [extrema_mask.candidate_mask_batched_torch(
             d, F, thr1) for d in bdogs], dev, reps), mask_bound(F),
-        what=what)
+        what=f"per batch of {F} frames as {nO} single-octave launches")
+    mk = extrema_mask.candidate_mask_octaves(bdogs, thr1, F)
+    sync(dev)
+    check(all(torch.equal(k.view(torch.uint8),
+                          extrema_mask.candidate_mask_batched_torch(d, F,
+                                                                    thr1))
+              for k, d in zip(mk, bdogs)),
+          "K1 over all octaves of the batch differs from its plain version")
+    del mk
+    batch_ms = median_ms(
+        lambda: extrema_mask.candidate_mask_octaves(bdogs, thr1, F), dev, reps)
+    say(f"K1 over all {nO} octaves of {F} frames in one launch: bit-equal to "
+        f"the plain version, {batch_ms:.4f} ms per batch (bound "
+        f"{mask_bound(F)[0]:.4f} ms)")
 
     bc = [E.collect_candidates_batched(d, F, cfg, caps[o])
           for o, d in enumerate(bdogs)]
@@ -780,10 +842,12 @@ def main_path_phase(frame: np.ndarray, dev, reps: int = 5) -> dict:
     for name in MAIN_PATH:
         check(launches[name] > 0,
               f"kernel {name} was not launched on the main path")
-    check(launches["descriptor_loop_octaves"] == 1
-          and launches["descriptor_loop"] == 0,
-          f"K4 launched {launches['descriptor_loop_octaves']} times over "
-          f"all octaves and {launches['descriptor_loop']} times on one")
+    for name in ONCE:
+        check(launches[name] == 1,
+              f"{name} launched {launches[name]} times on the main path")
+    for name in ("descriptor_loop", "extrema_mask", "orientation_hist"):
+        check(launches[name] == 0, f"single-octave {name} ran on the main "
+              f"path {launches[name]} times")
     dropped = raw.octave_dropped.tolist()
     check(all(d == 0 for d in dropped), f"dropped candidates {dropped}")
     check(host.getFeatureCount() == BENCH_KEYPOINTS
@@ -871,15 +935,15 @@ def batch_phase(frames: list, dev, reps: int = 3) -> dict:
           f"K5 launched {launches['blur_dog']} times for {n_wide} wide "
           f"octaves and {launches['blur_dog_thin']} times for the "
           f"{n_oct - n_wide} thin ones")
-    for name in ("extrema_mask_batched", "refine_batched"):
-        check(launches[name] == n_oct,
-              f"{name} launched {launches[name]} times for {n_oct} octaves")
-    for name in ("extrema_mask", "refine"):
-        check(launches[name] == 0, f"single-frame {name} ran in the batch")
-    check(launches["descriptor_loop_octaves"] == 1
-          and launches["descriptor_loop"] == 0,
-          f"K4 launched {launches['descriptor_loop_octaves']} times for the "
-          f"batch and {launches['descriptor_loop']} times on one octave")
+    check(launches["refine_batched"] == n_oct,
+          f"refine_batched launched {launches['refine_batched']} times for "
+          f"{n_oct} octaves")
+    for name in ONCE:
+        check(launches[name] == 1,
+              f"{name} launched {launches[name]} times for the batch")
+    for name in ("extrema_mask", "extrema_mask_batched", "refine",
+                 "orientation_hist", "descriptor_loop"):
+        check(launches[name] == 0, f"{name} ran in the batch")
 
     for f, (frame, job, host) in enumerate(zip(frames, jobs, hosts)):
         one = ps.enqueue(frame)
@@ -933,6 +997,8 @@ def batch_phase(frames: list, dev, reps: int = 3) -> dict:
     for name, n in probe_launches.items():
         check((n > 0) == (name in PROBE_PATH),
               f"calibration probe launched {name} {n} times")
+    check(probe_launches["extrema_mask_octaves"] == 1,
+          "the probe of one frame launched K1 more than once")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         job = ps2.enqueue(frames[0])
@@ -957,10 +1023,11 @@ def routes_phase(frames: list, dev, reps: int = 7) -> dict:
     from popsift_tpu_torch.api import PopSift
     from popsift_tpu_torch.config import SiftConfig
     from popsift_tpu_torch.ops import descriptors as D
+    from popsift_tpu_torch.ops import extrema as E
     from popsift_tpu_torch.ops import kernels
     from popsift_tpu_torch.ops import orientation as O
     from popsift_tpu_torch.ops import patches as PT
-    from popsift_tpu_torch.ops.kernels import desc, orient
+    from popsift_tpu_torch.ops.kernels import desc, extrema_mask, orient
     from popsift_tpu_torch.ops.pyramid import CHAIN_GROUP, build_pyramid
     from popsift_tpu_torch.pipeline import (build_extract_plan, extract,
                                             extract_batch)
@@ -988,6 +1055,9 @@ def routes_phase(frames: list, dev, reps: int = 7) -> dict:
             check(launches[name] > 0, f"{tag}: kernel {name} was not launched")
         for name, n in launches.items():
             check(n == 0 or name in path, f"{tag}: {name} launched {n} times")
+        for name in ONCE:
+            check(launches[name] == 1,
+                  f"{tag}: {name} launched {launches[name]} times")
         check(hosts[0].getFeatureCount() == BENCH_KEYPOINTS
               and hosts[0].getDescriptorCount() == BENCH_DESCRIPTORS
               and not jobs[0].raw.octave_dropped.any(),
@@ -1025,8 +1095,8 @@ def routes_phase(frames: list, dev, reps: int = 7) -> dict:
     od = int(raw.octave_candidates.argmax())
     offs = np.concatenate([[0], np.cumsum(plan.ext_caps)]).astype(int)
     sl = slice(offs[od], offs[od + 1])
-    blurs, _ = build_pyramid(torch.from_numpy(frames[0]).to(dev),
-                             plan.pyramid)
+    blurs, dogs = build_pyramid(torch.from_numpy(frames[0]).to(dev),
+                                plan.pyramid)
     scale = 2.0 ** (od - cfg.upscale_factor)
     kx, ky, ks = (raw.x[sl] / scale, raw.y[sl] / scale, raw.sigma[sl] / scale)
     level = torch.round(torch.log2(ks.clamp(min=1e-6) / cfg.sigma)
@@ -1052,6 +1122,13 @@ def routes_phase(frames: list, dev, reps: int = 7) -> dict:
     dpt = desc.descriptor_loop_patches(pt, py0, px0, kx[rows], ky[rows],
                                        ks[rows], ang[rows], valid[rows],
                                        *plan.pyramid.dims[od])
+    thr1 = float(np.float32(E._first_threshold(cfg)))
+    m1 = extrema_mask.candidate_mask(dogs[od], thr1)
+    m2 = extrema_mask.candidate_mask_batched(
+        torch.cat([dogs[od], dogs[od]]), 2, thr1)
+    check(bool(m1.any()) and bool(torch.equal(m2[0], m1))
+          and bool(torch.equal(m2[1], m1)),
+          "off-path entries: K1's single-octave and batched entries differ")
     out["off_path"] = kernels.launch_counts()
     say(f"entries off every path on octave {od} ({rows.numel()} keypoints): "
         f"launches {out['off_path']}")

@@ -2,7 +2,9 @@
 
 Port of :mod:`popsift_tpu.ops.extrema` (default, dense-stack path):
 
-* the candidate mask runs as kernel K1 (ops/kernels/extrema_mask.py);
+* the candidate mask runs as kernel K1 (ops/kernels/extrema_mask.py),
+  one launch for all octaves of a frame or batch
+  (:func:`candidate_masks`); the collections take its masks ready;
 * the compaction keeps ``_compact_mask``'s exact semantics -- ascending
   flat order, the per-128-block cap ``K``, truncation at the capacity,
   ``n_found`` and both ways of counting ``n_dropped`` -- with
@@ -32,6 +34,8 @@ from ..config import SiftConfig
 from ..utils.f32 import div
 from .kernels.extrema_mask import (candidate_mask, candidate_mask_batched,
                                    candidate_mask_batched_torch,
+                                   candidate_mask_octaves,
+                                   candidate_mask_octaves_torch,
                                    candidate_mask_torch)
 from .kernels.refine import (MAX_ITERATIONS, NOUT, refine_loop,
                              refine_state, refine_state_batched,
@@ -114,7 +118,24 @@ def _candidate_mask(dog: torch.Tensor, cfg: SiftConfig,
     Z = cfg.total_levels - 3
     thr1 = float(np.float32(_first_threshold(cfg)))
     fn = candidate_mask_torch if plain else candidate_mask
-    return _opencv_border(fn(dog[:Z + 2].contiguous(), thr1).bool(), cfg)
+    return _opencv_border(
+        fn(dog[:Z + 2].contiguous(), thr1).view(torch.bool), cfg)
+
+
+def candidate_masks(dogs, cfg: SiftConfig, F: int = 1,
+                    plain: bool = False) -> list:
+    """The bool[F, Z, H_o, W_o] masks of all octaves of F frames (``dogs``:
+    per octave the frames' DoG stacks back to back on the layer axis,
+    f32[F*(Z+2), H_o, W_o]) in one launch of kernel K1 (or its plain
+    version with ``plain``), with opencv's border rejection."""
+    D = cfg.total_levels - 1
+    for d in dogs:
+        if d.shape[0] != F * D:
+            raise ValueError(f"candidate_masks: {d.shape[0]} layers for {F} "
+                             f"frames of {D}")
+    thr1 = float(np.float32(_first_threshold(cfg)))
+    fn = candidate_mask_octaves_torch if plain else candidate_mask_octaves
+    return [_opencv_border(m, cfg) for m in fn(dogs, thr1, F)]
 
 
 def _rank_rows(m: torch.Tensor, K: int):
@@ -144,9 +165,12 @@ def _compact_mask(flat: torch.Tensor, capacity: int, block_k: int = 0):
         K = int(np.clip(4 * capacity * _B // max(N, 1) + 1, 16, _B - 1))
     nb = -(-N // _B)
     dev = flat.device
-    m = torch.zeros(nb * _B, dtype=torch.bool, device=dev)
-    m[:N] = flat
-    m = m.view(nb, _B)
+    if N == nb * _B and flat.is_contiguous():
+        m = flat.view(nb, _B)
+    else:
+        m = torch.zeros(nb * _B, dtype=torch.bool, device=dev)
+        m[:N] = flat
+        m = m.view(nb, _B)
 
     if nb <= max(2 * capacity, 512):
         # small masks: every block is a row (:242-248)
@@ -178,14 +202,18 @@ def _compact_mask(flat: torch.Tensor, capacity: int, block_k: int = 0):
 
 def collect_candidates(dog: torch.Tensor, cfg: SiftConfig,
                        capacity: int, plain: bool = False,
-                       windows: bool = False) -> CandidateSet:
-    """Mask (K1) + compaction for one octave's f32[D, H, W] DoG stack.
+                       windows: bool = False,
+                       mask: torch.Tensor | None = None) -> CandidateSet:
+    """Mask (K1) + compaction for one octave's f32[D, H, W] DoG stack;
+    ``mask`` is the octave's ready bool[Z, H, W] mask where the caller
+    made all octaves' in one launch (:func:`candidate_masks`).
     With ``windows`` also every candidate's [D, 11, 11] window (K6, or
     its plain version with ``plain``), centred on the candidate with
     edge replication, as popsift_tpu.ops.extrema.collect_candidates
     cuts them (:371-388); the count stays on the device."""
     _, H, W = dog.shape
-    mask = _candidate_mask(dog, cfg, plain)
+    if mask is None:
+        mask = _candidate_mask(dog, cfg, plain)
     idx, n_found, n_dropped = _compact_mask(
         mask.reshape(-1), capacity, block_k=cfg.compact_block_k)
     valid = torch.arange(capacity, device=dog.device) < n_found
@@ -202,8 +230,11 @@ def collect_candidates(dog: torch.Tensor, cfg: SiftConfig,
 
 def collect_candidates_batched(dog: torch.Tensor, F: int, cfg: SiftConfig,
                                capacity: int, plain: bool = False,
-                               windows: bool = False) -> CandidateSet:
-    """Mask (K1's batched entry, or its plain version with ``plain``) and
+                               windows: bool = False,
+                               mask: torch.Tensor | None = None
+                               ) -> CandidateSet:
+    """Mask (K1's batched entry, or its plain version with ``plain``, or
+    the ready bool[F, Z, H, W] ``mask`` of :func:`candidate_masks`) and
     per-frame compaction of one octave for F frames, port of
     popsift_tpu.ops.extrema.collect_candidates_batched (:394-448) on
     dense stacks: ``dog`` is f32[F*D, H, W], frame f's D =
@@ -216,9 +247,11 @@ def collect_candidates_batched(dog: torch.Tensor, F: int, cfg: SiftConfig,
     if FD != F * (cfg.total_levels - 1):
         raise ValueError(f"collect_candidates_batched: {FD} layers for {F} "
                          f"frames of {cfg.total_levels - 1}")
-    thr1 = float(np.float32(_first_threshold(cfg)))
-    mask_fn = candidate_mask_batched_torch if plain else candidate_mask_batched
-    mask = _opencv_border(mask_fn(dog, F, thr1).bool(), cfg)
+    if mask is None:
+        thr1 = float(np.float32(_first_threshold(cfg)))
+        mask_fn = candidate_mask_batched_torch if plain \
+            else candidate_mask_batched
+        mask = _opencv_border(mask_fn(dog, F, thr1).view(torch.bool), cfg)
     # per-frame compaction (JAX vmaps _compact_mask, :518-521)
     comp = [_compact_mask(mask[f].reshape(-1), capacity,
                           block_k=cfg.compact_block_k) for f in range(F)]
@@ -240,13 +273,14 @@ def collect_candidates_batched(dog: torch.Tensor, F: int, cfg: SiftConfig,
 
 
 def collect_refined_batched(dog: torch.Tensor, F: int, cfg: SiftConfig,
-                            capacity: int,
-                            plain: bool = False) -> RefinedSet:
+                            capacity: int, plain: bool = False,
+                            mask: torch.Tensor | None = None) -> RefinedSet:
     """:func:`collect_candidates_batched`, then one refinement launch
     (K2's batched entry, or its plain version with ``plain``) for all F
     frames; port of popsift_tpu.ops.extrema.collect_refined_batched
     (:496-539). ``vals`` rows are frame-major."""
-    cand = collect_candidates_batched(dog, F, cfg, capacity, plain)
+    cand = collect_candidates_batched(dog, F, cfg, capacity, plain,
+                                      mask=mask)
     refine_fn = refine_state_batched_torch if plain else refine_state_batched
     vals = refine_fn(dog, cand.x0, cand.y0, cand.z0, cand.n_found, F,
                      maxlevel=cfg.total_levels - 1,

@@ -6,6 +6,10 @@ its own, ``launches_batched``). A wrapper given CPU tensors runs the
 plain version; given CUDA tensors it launches the kernel (adding one to
 its counter) or raises. There is no other switch between the two.
 ``blur_dog_thin`` is K5's one launch for all levels of the thin octaves.
+``extrema_mask_octaves`` and ``orientation_hist_octaves`` are K1's and
+K3's launches over all octaves of a frame or batch; ``extrema_mask``,
+``extrema_mask_batched`` and ``orientation_hist`` the same kernels on one
+octave.
 ``descriptor_loop_octaves`` is K4's launch over all octaves of a frame or
 batch, ``descriptor_loop`` the same kernel on one octave. The bucketed
 entries of K3 and K4 add no kernel of their own: each counts the
@@ -20,8 +24,12 @@ ENTRIES = {
     blur_dog.NAME: (blur_dog, "launches", blur_dog.REPLACES),
     blur_dog.NAME_THIN: (blur_dog, "launches_thin", blur_dog.REPLACES_THIN),
     extrema_mask.NAME: (extrema_mask, "launches", extrema_mask.REPLACES),
+    extrema_mask.NAME_OCTAVES: (extrema_mask, "launches_octaves",
+                                extrema_mask.REPLACES_OCTAVES),
     refine.NAME: (refine, "launches", refine.REPLACES),
     orient.NAME: (orient, "launches", orient.REPLACES),
+    orient.NAME_OCTAVES: (orient, "launches_octaves",
+                          orient.REPLACES_OCTAVES),
     desc.NAME: (desc, "launches", desc.REPLACES),
     desc.NAME_OCTAVES: (desc, "launches_octaves", desc.REPLACES_OCTAVES),
     extrema_mask.NAME_BATCHED: (extrema_mask, "launches_batched",

@@ -67,19 +67,18 @@ _SIGNATURES = {
                     _I, _VP, _I, _VP),
     # table (host i64[n_oct, 4]), n_oct, N, L, pick_level, taps, spans, stream
     "ps_blur_dog_thin": (_VP, _I, _I, _I, _I, _VP, _VP, _VP),
-    # dog, out, D, H, W, thr1, stream
-    "ps_extrema_mask": (_VP, _VP, _I, _I, _I, _F, _VP),
-    # dog, out, F, D, H, W, thr1, stream
-    "ps_extrema_mask_batched": (_VP, _VP, _I, _I, _I, _I, _F, _VP),
+    # table (host i64[n_oct, 5]), n_oct, F, thr1, stream
+    "ps_extrema_mask_octaves": (_VP, _I, _I, _F, _VP),
     # dog, x0, y0, z0, n, D, H, W, maxlevel, vlfeat, out, stream
     "ps_refine": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP, _VP),
     # dog, x0, y0, z0, n_found, F, cap, D, H, W, maxlevel, vlfeat, out,
     # stream
     "ps_refine_batched": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
                           _I, _VP, _VP),
-    # blur, L, H, W, x, y, sigma, level, valid, n, out, stream
-    "ps_orientation_hist": (_VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _I,
-                            _VP, _VP),
+    # table (host i64[n_oct, 5]), n_oct, n_rows, frame_rows, x, y, sigma,
+    # level, valid, out, stream
+    "ps_orientation_hist_octaves": (_VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP,
+                                    _VP, _VP),
     # blur, L, H, W, x, y, sigma, level, ang, valid, n, radius, out, stream
     "ps_descriptor_loop": (_VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP,
                            _I, _I, _VP, _VP),

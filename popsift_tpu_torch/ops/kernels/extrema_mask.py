@@ -8,13 +8,20 @@ strictly greater, or strictly smaller, than all 26 neighbours. Border
 pixels are false (with edge-replicated neighbours they can never be
 strict extrema).
 
-The frame-batched entry (:func:`candidate_mask_batched`, replacing
-``candidate_mask_canvas_batched``) takes F frames' stacks back to back,
-f32[F*D, H, W], in one launch, with its own launch counter.
+:func:`candidate_mask_octaves` is the entry of the extraction paths: the
+masks of all octaves of a frame, or of F frames, in ONE launch, returned
+as ``torch.bool`` views of the kernel's 0/1 bytes (no copy).
+:func:`candidate_mask` (one octave) and :func:`candidate_mask_batched`
+(one octave of F frames' stacks back to back, f32[F*D, H, W], replacing
+``candidate_mask_canvas_batched``) launch the same kernel on a table of
+one octave; each entry has its own launch counter.
 """
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
 from . import build
@@ -24,8 +31,12 @@ SOURCE = "popsift_tpu_torch/csrc/extrema_mask.cu"
 REPLACES = "popsift_tpu/ops/pallas/extrema_mask.py:265"
 NAME_BATCHED = "extrema_mask_batched"
 REPLACES_BATCHED = "popsift_tpu/ops/pallas/extrema_mask.py:383"
+NAME_OCTAVES = "extrema_mask_octaves"
+REPLACES_OCTAVES = REPLACES
+MAX_OCTAVES = 16         # MAX_OCT of csrc/extrema_mask.cu
 launches = 0
 launches_batched = 0
+launches_octaves = 0
 
 
 def _neighbor_offsets():
@@ -53,21 +64,41 @@ def candidate_mask_torch(dog: torch.Tensor, thr1: float) -> torch.Tensor:
     return (first & (gt | lt)).to(torch.uint8)
 
 
+def _check(dog: torch.Tensor, F: int, who: str) -> None:
+    if (dog.dim() != 3 or F < 1 or dog.shape[0] % F
+            or dog.shape[0] // F < 3 or dog.dtype != torch.float32):
+        raise ValueError(f"{who} expects f32[F*D, H, W] with D >= 3")
+
+
+def _launch(name: str, dogs, F: int, thr1: float) -> list:
+    """One launch of K1 over the octaves ``dogs`` (each f32[F*D_o, H_o,
+    W_o]); returns their uint8 [F, D_o-2, H_o, W_o] masks."""
+    if not 1 <= len(dogs) <= MAX_OCTAVES:
+        raise ValueError(f"{name}: {len(dogs)} octaves (1 to {MAX_OCTAVES})")
+    build.require_cuda(name, *dogs)
+    outs = [torch.empty((F, d.shape[0] // F - 2, d.shape[1], d.shape[2]),
+                        dtype=torch.uint8, device=d.device) for d in dogs]
+    # by-value launch table: the stacks stay alive in ``dogs`` and the
+    # launch is ordered on the current stream, so raw addresses are safe
+    table = np.asarray([[d.data_ptr(), o.data_ptr(), d.shape[0] // F,
+                         d.shape[1], d.shape[2]]
+                        for d, o in zip(dogs, outs)], np.int64)
+    lib = build.load_library()
+    rc = lib.ps_extrema_mask_octaves(
+        table.ctypes.data_as(ctypes.c_void_p), len(dogs), F, float(thr1),
+        build.stream_of(dogs[0]))
+    build.check(rc, name)
+    return outs
+
+
 def candidate_mask(dog: torch.Tensor, thr1: float) -> torch.Tensor:
     """uint8 [D-2, H, W] candidate mask of a dense f32[D, H, W] DoG
     stack: plain version on the CPU, kernel K1 on a CUDA device."""
     global launches
-    if dog.dim() != 3 or dog.shape[0] < 3 or dog.dtype != torch.float32:
-        raise ValueError("candidate_mask expects f32[D >= 3, H, W]")
+    _check(dog, 1, "candidate_mask")
     if dog.device.type == "cpu":
         return candidate_mask_torch(dog, thr1)
-    build.require_cuda(NAME, dog)
-    D, H, W = dog.shape
-    out = torch.empty((D - 2, H, W), dtype=torch.uint8, device=dog.device)
-    lib = build.load_library()
-    rc = lib.ps_extrema_mask(dog.data_ptr(), out.data_ptr(), D, H, W,
-                             float(thr1), build.stream_of(dog))
-    build.check(rc, NAME)
+    out = _launch(NAME, [dog], 1, thr1)[0][0]
     launches += 1
     return out
 
@@ -87,19 +118,33 @@ def candidate_mask_batched(dog: torch.Tensor, F: int,
     stacks stacked on the layer axis, f32[F*D, H, W]: plain version on
     the CPU, one launch of kernel K1 for all frames on a CUDA device."""
     global launches_batched
-    if (dog.dim() != 3 or F < 1 or dog.shape[0] % F
-            or dog.shape[0] // F < 3 or dog.dtype != torch.float32):
-        raise ValueError("candidate_mask_batched expects f32[F*D, H, W] "
-                         "with D >= 3")
+    _check(dog, F, "candidate_mask_batched")
     if dog.device.type == "cpu":
         return candidate_mask_batched_torch(dog, F, thr1)
-    build.require_cuda(NAME_BATCHED, dog)
-    FD, H, W = dog.shape
-    D = FD // F
-    out = torch.empty((F, D - 2, H, W), dtype=torch.uint8, device=dog.device)
-    lib = build.load_library()
-    rc = lib.ps_extrema_mask_batched(dog.data_ptr(), out.data_ptr(), F, D, H,
-                                     W, float(thr1), build.stream_of(dog))
-    build.check(rc, NAME_BATCHED)
+    out = _launch(NAME_BATCHED, [dog], F, thr1)[0]
     launches_batched += 1
     return out
+
+
+def candidate_mask_octaves_torch(dogs, thr1: float, F: int = 1) -> list:
+    """Plain version of :func:`candidate_mask_octaves`:
+    :func:`candidate_mask_batched_torch` per octave, as bool."""
+    return [candidate_mask_batched_torch(d, F, thr1).view(torch.bool)
+            for d in dogs]
+
+
+def candidate_mask_octaves(dogs, thr1: float, F: int = 1) -> list:
+    """bool [F, D_o-2, H_o, W_o] candidate masks of the octaves ``dogs``
+    (each the dense DoG stacks of F frames back to back on the layer
+    axis, f32[F*D_o, H_o, W_o]): plain version on the CPU, ONE launch of
+    kernel K1 for all octaves and frames on a CUDA device. The masks are
+    views of the kernel's bytes as ``torch.bool``."""
+    global launches_octaves
+    for d in dogs:
+        _check(d, F, "candidate_mask_octaves")
+    if dogs[0].device.type == "cpu":
+        return candidate_mask_octaves_torch(dogs, thr1, F)
+    outs = [o.view(torch.bool) for o in _launch(NAME_OCTAVES, list(dogs), F,
+                                                thr1)]
+    launches_octaves += 1
+    return outs

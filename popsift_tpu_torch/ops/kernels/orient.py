@@ -9,17 +9,24 @@ floor(d^2) <= r^2 add |grad| * exp(floor(d^2) * -0.5 / (sw^2 + 1e-30))
 (s_orientation.cu:96-134). Rows that are not valid, and rows at or past
 ``n``, are zero.
 
+:func:`orientation_hist_octaves` is the entry of the extraction paths:
+the rows of all octaves of a frame, or of F frames, in ONE launch. The
+kernel reads ``valid`` itself and writes the zeros of the rows that are
+not valid, so the output is not filled first and no count is read.
+:func:`orientation_hist` launches the same kernel on one octave's rows;
+a row's bits do not depend on the launch that holds it.
+
 :func:`orientation_hist_bucketed` replaces
 ``orientation_hist_pallas_bucketed`` (orient.py:251): rows with
 ``sigma <= sigma_split`` in one K3 launch, the rest in another, gathered
 back in row order. K3 walks each keypoint's own window, so the buckets
 change no block's work, only which launch holds it; the static radii
-bound the plain version's window. The extraction path launches K3 once
-per octave and does not call it.
+bound the plain version's window. No extraction path calls it.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
@@ -34,7 +41,11 @@ SOURCE = "popsift_tpu_torch/csrc/orient.cu"
 REPLACES = "popsift_tpu/ops/pallas/orient.py:183"
 NAME_BUCKETED = "orientation_hist_bucketed"
 REPLACES_BUCKETED = "popsift_tpu/ops/pallas/orient.py:251"
+NAME_OCTAVES = "orientation_hist_octaves"
+REPLACES_OCTAVES = REPLACES
+MAX_OCTAVES = 16         # MAX_OCT of csrc/orient.cu
 launches = 0
+launches_octaves = 0
 launches_bucketed = 0    # bucketed calls that reached K3 on a CUDA device
 # f32 constants of the JAX code (np.float32(math.pi), np.float32(2 pi))
 _PI = float(np.float32(math.pi))
@@ -110,11 +121,46 @@ def orientation_hist_torch(blur, x, y, sigma, level, valid, n: int,
     return out
 
 
+def _launch(name: str, blurs, row_ends, x, y, sigma, level, valid, F: int,
+            n_rows: int | None = None) -> torch.Tensor:
+    """One launch of K3 over rows [0, n_rows) (default: all K rows) of F
+    frames' row arrays; returns f32[K, 36] with the rows past ``n_rows``
+    zero. ``level`` is taken as i64 and ``valid`` as one byte a row, the
+    types the pipeline holds, so neither is copied."""
+    if not 1 <= len(blurs) <= MAX_OCTAVES:
+        raise ValueError(f"{name}: {len(blurs)} octaves (1 to {MAX_OCTAVES})")
+    x, y, sigma = (t.to(torch.float32).contiguous() for t in (x, y, sigma))
+    level = level.to(torch.int64).contiguous()
+    valid = (valid.view(torch.uint8) if valid.dtype == torch.bool
+             else valid.to(torch.uint8)).contiguous()
+    build.require_cuda(name, *blurs, x, y, sigma, level, valid)
+    K = x.shape[0]
+    n_rows = K if n_rows is None else n_rows
+    out = torch.empty((K, ORI_NBINS), dtype=torch.float32, device=x.device)
+    if n_rows < K:
+        out[n_rows:].zero_()
+    if n_rows == 0:
+        return out
+    # by-value launch table: the stacks stay alive in ``blurs`` and the
+    # launch is ordered on the current stream, so raw addresses are safe
+    table = np.asarray([[b.data_ptr(), b.shape[0] // F, b.shape[1],
+                         b.shape[2], end]
+                        for b, end in zip(blurs, row_ends)], np.int64)
+    lib = build.load_library()
+    rc = lib.ps_orientation_hist_octaves(
+        table.ctypes.data_as(ctypes.c_void_p), len(blurs), n_rows,
+        n_rows // F, x.data_ptr(), y.data_ptr(), sigma.data_ptr(),
+        level.data_ptr(), valid.data_ptr(), out.data_ptr(),
+        build.stream_of(x))
+    build.check(rc, name)
+    return out
+
+
 def orientation_hist(blur, x, y, sigma, level, valid, n: int,
                      radius: int) -> torch.Tensor:
     """f32[K, 36] raw histograms of keypoint rows [0, n) on the octave's
     f32[L, H, W] blur stack: plain version on the CPU, kernel K3 on a
-    CUDA device (which needs no static ``radius``: each block walks its
+    CUDA device (which needs no static ``radius``: each warp walks its
     own keypoint's window)."""
     global launches
     if blur.dim() != 3 or blur.dtype != torch.float32:
@@ -122,25 +168,66 @@ def orientation_hist(blur, x, y, sigma, level, valid, n: int,
     if blur.device.type == "cpu":
         return orientation_hist_torch(blur, x, y, sigma, level, valid, n,
                                       radius)
-    x, y, sigma = (t.to(torch.float32).contiguous() for t in (x, y, sigma))
-    level = level.to(torch.int32).contiguous()
-    valid = valid.to(torch.uint8).contiguous()
-    build.require_cuda(NAME, blur, x, y, sigma, level, valid)
-    L, H, W = blur.shape
+    if not 0 <= n <= x.shape[0]:
+        raise ValueError(f"orientation_hist: n={n} outside [0, {x.shape[0]}]")
+    out = _launch(NAME, [blur], [n], x, y, sigma, level, valid, 1, n)
+    launches += 1 if n else 0
+    return out
+
+
+def _check_octaves(blurs, row_ends, K: int, F: int) -> None:
+    if (len(blurs) != len(row_ends) or not blurs or F < 1 or K % F
+            or list(row_ends) != sorted(row_ends)
+            or row_ends[-1] != K // F):
+        raise ValueError(f"orientation_hist_octaves: row ends {row_ends} for "
+                         f"{len(blurs)} octaves and {K} rows of {F} frames")
+    for b in blurs:
+        if b.dim() != 3 or b.dtype != torch.float32 or b.shape[0] % F:
+            raise ValueError("orientation_hist_octaves expects f32[F*L, H, W] "
+                             "stacks")
+
+
+def orientation_hist_octaves_torch(blurs, row_ends, x, y, sigma, level, valid,
+                                   radius: int, F: int = 1) -> torch.Tensor:
+    """Plain version of :func:`orientation_hist_octaves`: per frame and
+    octave the valid rows gathered to the front in row order, through
+    :func:`orientation_hist_torch`, scattered back."""
     K = x.shape[0]
-    if not 0 <= n <= K:
-        raise ValueError(f"orientation_hist: n={n} outside [0, {K}]")
-    out = torch.zeros((K, ORI_NBINS), dtype=torch.float32,
-                      device=blur.device)
-    if n == 0:
-        return out
-    lib = build.load_library()
-    rc = lib.ps_orientation_hist(
-        blur.data_ptr(), L, H, W, x.data_ptr(), y.data_ptr(),
-        sigma.data_ptr(), level.data_ptr(), valid.data_ptr(), n,
-        out.data_ptr(), build.stream_of(blur))
-    build.check(rc, NAME)
-    launches += 1
+    _check_octaves(blurs, row_ends, K, F)
+    out = torch.zeros((K, ORI_NBINS), dtype=torch.float32, device=x.device)
+    for f in range(F):
+        start = f * (K // F)
+        for blur, end in zip(blurs, row_ends):
+            stop = f * (K // F) + end
+            L = blur.shape[0] // F
+            rows = start + valid[start:stop].nonzero().squeeze(1)
+            if rows.numel():
+                out[rows] = orientation_hist_torch(
+                    blur, x[rows], y[rows], sigma[rows],
+                    level[rows].clamp(0, L - 1) + f * L, valid[rows],
+                    rows.numel(), radius)
+            start = stop
+    return out
+
+
+def orientation_hist_octaves(blurs, row_ends, x, y, sigma, level, valid,
+                             radius: int, F: int = 1) -> torch.Tensor:
+    """f32[K, 36] raw histograms of the keypoint rows of several octaves
+    and F frames in one launch. ``blurs``: the octaves' blur stacks, F
+    frames back to back on the layer axis, f32[F*L_o, H_o, W_o];
+    ``row_ends``: ascending ends of each octave's rows within a frame's
+    K / F rows (the rows are frame-major, each frame's octave segments
+    back to back); ``level`` indexes the frame's own L_o layers. Rows
+    that are not valid are zero; no count is read back. Plain version on
+    the CPU, kernel K3 on a CUDA device (which needs no ``radius``)."""
+    global launches_octaves
+    _check_octaves(blurs, row_ends, x.shape[0], F)
+    if blurs[0].device.type == "cpu":
+        return orientation_hist_octaves_torch(blurs, row_ends, x, y, sigma,
+                                              level, valid, radius, F)
+    out = _launch(NAME_OCTAVES, list(blurs), [int(e) for e in row_ends], x,
+                  y, sigma, level, valid, F)
+    launches_octaves += 1 if x.shape[0] else 0
     return out
 
 

@@ -1,7 +1,8 @@
 """Keypoint orientation assignment in PyTorch.
 
 Port of :mod:`popsift_tpu.ops.orientation`: the raw 36-bin histogram runs
-as kernel K3 (ops/kernels/orient.py), one launch per octave; smoothing,
+as kernel K3 (ops/kernels/orient.py), one launch for all octaves of a
+frame or batch (:func:`orientation_histograms_octaves`); smoothing,
 parabolic peak refinement and the 0.8-max acceptance of at most four
 peaks (s_orientation.cu:142-241) are [K, 36] tensor math run once over
 all octaves.
@@ -18,7 +19,9 @@ import torch
 from ..config import ORI_NBINS, ORI_WINFACTOR, ORIENTATION_MAX_COUNT, SiftConfig
 from ..utils.f32 import div
 from .extrema import OctaveExtrema
-from .kernels.orient import orientation_hist, orientation_hist_torch
+from .kernels.orient import (orientation_hist, orientation_hist_octaves,
+                             orientation_hist_octaves_torch,
+                             orientation_hist_torch)
 
 
 class OctaveOrientations(NamedTuple):
@@ -44,6 +47,21 @@ def orientation_histograms(blur: torch.Tensor, ext: OctaveExtrema,
     fn = orientation_hist_torch if plain else orientation_hist
     return fn(blur, ext.x, ext.y, ext.sigma, ext.level, ext.valid, n,
               max_ori_radius(cfg))
+
+
+def orientation_histograms_octaves(blurs, ext: OctaveExtrema,
+                                   cfg: SiftConfig, row_ends, F: int = 1,
+                                   plain: bool = False) -> torch.Tensor:
+    """Raw f32[K, 36] histograms of the keypoint rows of all octaves of F
+    frames in one launch of kernel K3 (or its plain version with
+    ``plain``). ``blurs``: per octave the frames' blur stacks back to
+    back on the layer axis; the rows of ``ext`` are frame-major, each
+    frame's octave o ending at row ``row_ends[o]`` of the frame, and
+    ``ext.level`` indexes the frame's own layers. Rows that are not
+    valid are zero."""
+    fn = orientation_hist_octaves_torch if plain else orientation_hist_octaves
+    return fn(blurs, row_ends, ext.x, ext.y, ext.sigma, ext.level, ext.valid,
+              max_ori_radius(cfg), F)
 
 
 def smooth_histograms(hist: torch.Tensor, smoothing: str = "vlfeat"

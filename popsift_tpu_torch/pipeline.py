@@ -2,10 +2,11 @@
 
 Port of :mod:`popsift_tpu.pipeline` -- the dense-stack (non-canvas)
 branch of ``extract`` (pipeline.py:237-406): the pyramid as dense
-per-octave stacks, per octave the candidate mask (K1) and compaction and
-the refinement (K2), ONE batched accept test over all octaves, per
-octave the orientation histograms (K3), one orientation tail, one
-segmented job build, the descriptors of all octaves in one launch (K4),
+per-octave stacks, the candidate masks of all octaves in one launch
+(K1), per octave the compaction and the refinement (K2), ONE batched
+accept test over all octaves, the orientation histograms of all octaves
+in one launch (K3), one orientation tail, one segmented job build, the
+descriptors of all octaves in one launch (K4),
 then normalisation and the output tail (octave scaling, descriptor ->
 keypoint map).
 
@@ -16,12 +17,13 @@ flags on the device. Everything else stays on the device.
 :func:`extract_batch` is the frame-batched form (pipeline.py:409-753 on
 dense stacks): F frames' pyramids share one K5 launch per level, each
 octave's stacks hold the frames back to back on the layer axis
-([F*L, H, W] and [F*(L-1), H, W]), K1 and K2 run once per octave for all
-frames, K3 runs once per octave and K4 once for the whole batch, both
-addressing frame f's level l as layer f*L + l. Every
+([F*L, H, W] and [F*(L-1), H, W]), K2 runs once per octave for all
+frames, K1, K3 and K4 once for the whole batch, K3 and K4 addressing
+frame f's level l as layer f*L + l. Every
 output gains a leading [F] axis. ``extract_batch`` of one frame equals
-``extract`` but runs more host glue (its live-row gathers and scatters),
-so the single-frame path keeps its own stages (PERF.md §6).
+``extract`` but runs more host glue (its per-frame compactions and
+frame-major reshapes), so the single-frame path keeps its own stages
+(PERF.md §6).
 :func:`calibrate_plan` sizes per-octave capacities from a detect-only
 probe (pipeline.py:787-831).
 
@@ -44,7 +46,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .config import ORI_NBINS, SiftConfig
+from .config import SiftConfig
 from .ops import descriptors as _desc
 from .ops import extrema as _ext
 from .ops import orientation as _ori
@@ -142,10 +144,10 @@ def extract(img, plan: ExtractPlan, device, *, plain: bool = False,
 
     blurs, dogs = build_pyramid(img, plan.pyramid, plain, front)
 
-    # detection: mask + compaction per octave, the refinement per octave
-    # (fused: K2 on the stack) or once over all octaves' windows, one
-    # batched accept test over all octaves (each row carries its
-    # octave's dims)
+    # detection: one mask launch for all octaves, compaction per octave,
+    # the refinement per octave (fused: K2 on the stack) or once over all
+    # octaves' windows, one batched accept test over all octaves (each row
+    # carries its octave's dims)
     octv_row = np.concatenate(
         [np.full(caps[o], o, np.int64) for o in range(len(caps))])
     w_row = torch.as_tensor(np.concatenate(
@@ -154,8 +156,10 @@ def extract(img, plan: ExtractPlan, device, *, plain: bool = False,
     h_row = torch.as_tensor(np.concatenate(
         [np.full(caps[o], oh, np.int64) for o, (oh, _) in enumerate(dims)]),
         device=dev)
+    masks = _ext.candidate_masks(dogs, cfg, plain=plain)
     cands = [_ext.collect_candidates(dog, cfg, caps[o], plain,
-                                     windows=detect == "windows")
+                                     windows=detect == "windows",
+                                     mask=masks[o][0])
              for o, dog in enumerate(dogs)]
     if detect == "windows":
         n_found = torch.stack([c.n_found for c in cands]).tolist()
@@ -172,19 +176,11 @@ def extract(img, plan: ExtractPlan, device, *, plain: bool = False,
         state, torch.cat([c.valid for c in cands]), cfg, w_row, h_row,
         sum(n_found), torch.stack([c.n_dropped for c in cands]).sum())
 
-    # orientation: per-octave histograms, one batched peak tail
-    def oct_slice(a, o):
-        return a[offs[o]:offs[o + 1]]
-
-    hists = []
-    for o in range(len(caps)):
-        ext_o = g._replace(
-            x=oct_slice(g.x, o), y=oct_slice(g.y, o), s=oct_slice(g.s, o),
-            level=oct_slice(g.level, o), sigma=oct_slice(g.sigma, o),
-            cell=oct_slice(g.cell, o), valid=oct_slice(g.valid, o))
-        hists.append(_ori.orientation_histograms(blurs[o], ext_o, cfg,
-                                                 n_found[o], plain))
-    oris = _ori.orientations_from_histograms(torch.cat(hists), g.valid,
+    # orientation: one K3 launch over the rows of all octaves (the kernel
+    # reads ``valid`` and zeroes the other rows), one batched peak tail
+    hist = _ori.orientation_histograms_octaves(blurs, g, cfg, offs[1:],
+                                               plain=plain)
+    oris = _ori.orientations_from_histograms(hist, g.valid,
                                              smoothing=cfg.ori_smoothing)
 
     # descriptors: one segmented job build, one K4 launch over the rows of
@@ -226,15 +222,6 @@ def extract(img, plan: ExtractPlan, device, *, plain: bool = False,
     )
 
 
-def _live_rows(counts, cap: int, base: int = 0, stride: int = 0):
-    """Indices of the live rows of F segments, frame f's first
-    ``counts[f]`` rows starting at ``base + f * stride`` (``stride``
-    defaults to ``cap``)."""
-    stride = stride or cap
-    return np.concatenate([base + f * stride + np.arange(c)
-                           for f, c in enumerate(counts)]).astype(np.int64)
-
-
 def extract_batch(imgs, plan: ExtractPlan, device, *, plain: bool = False,
                   detect: str = "fused",
                   front: str = "level") -> SiftFeatures:
@@ -263,7 +250,7 @@ def extract_batch(imgs, plan: ExtractPlan, device, *, plain: bool = False,
     blurs = [b.view(F * L, *b.shape[2:]) for b in blurs]
     dogs = [d.view(F * (L - 1), *d.shape[2:]) for d in dogs]
 
-    # detection: one mask launch per octave for all frames, the
+    # detection: one mask launch for all octaves and frames, the
     # refinement once per octave (fused: K2's batched entry) or once over
     # all frames' and octaves' windows, one accept test over everything.
     # Rows are frame-major: frame f's octaves back to back.
@@ -281,9 +268,10 @@ def extract_batch(imgs, plan: ExtractPlan, device, *, plain: bool = False,
         return torch.cat([a.view(F, caps[o], *a.shape[1:])
                           for o, a in enumerate(per_octave)], 1).flatten(0, 1)
 
+    masks = _ext.candidate_masks(dogs, cfg, F, plain)
     if detect == "windows":
         cands = [_ext.collect_candidates_batched(
-            dogs[o], F, cfg, caps[o], plain, windows=True)
+            dogs[o], F, cfg, caps[o], plain, windows=True, mask=masks[o])
             for o in range(n_oct)]
         valid_rows = torch.cat([c.valid for c in cands], 1).reshape(-1)
         vals = _ext.refine_patches(
@@ -292,7 +280,8 @@ def extract_batch(imgs, plan: ExtractPlan, device, *, plain: bool = False,
             frame_major([c.y0 for c in cands]),
             frame_major([c.z0 for c in cands]), valid_rows, cfg, w_row, h_row)
     else:
-        cands = [_ext.collect_refined_batched(dogs[o], F, cfg, caps[o], plain)
+        cands = [_ext.collect_refined_batched(dogs[o], F, cfg, caps[o], plain,
+                                              mask=masks[o])
                  for o in range(n_oct)]
         valid_rows = torch.cat([c.valid for c in cands], 1).reshape(-1)
         vals = frame_major([c.vals for c in cands])
@@ -301,20 +290,11 @@ def extract_batch(imgs, plan: ExtractPlan, device, *, plain: bool = False,
         vals, valid_rows, cfg, w_row, h_row,
         int(np.sum(n_found)), torch.stack([c.n_dropped for c in cands]).sum())
 
-    # orientation: per octave one K3 launch over all frames' live rows
-    # (gathered, so no launch covers the padding between frames), which
-    # address frame f's level l as layer f*L + l of the stacked blur
-    level_b = g.level + torch.arange(F, device=dev).repeat_interleave(Ktot) * L
-    hist = torch.zeros((F * Ktot, ORI_NBINS), dtype=torch.float32,
-                       device=dev)
-    for o in range(n_oct):
-        rows = torch.as_tensor(
-            _live_rows(n_found[o], caps[o], int(offs[o]), Ktot), device=dev)
-        ext_o = g._replace(
-            x=g.x[rows], y=g.y[rows], s=g.s[rows], level=level_b[rows],
-            sigma=g.sigma[rows], cell=g.cell[rows], valid=g.valid[rows])
-        hist[rows] = _ori.orientation_histograms(
-            blurs[o], ext_o, cfg, rows.numel(), plain)
+    # orientation: one K3 launch over the frame-major rows of all frames
+    # and octaves; the kernel takes frame f's level l as layer f*L + l of
+    # the stacked blur and zeroes the rows that are not valid
+    hist = _ori.orientation_histograms_octaves(blurs, g, cfg, offs[1:], F,
+                                               plain)
     oris = _ori.orientations_from_histograms(hist, g.valid,
                                              smoothing=cfg.ori_smoothing)
 
@@ -399,8 +379,8 @@ def saturation_report(feats: SiftFeatures, plan: ExtractPlan) -> list:
 
 def make_probe_fn(plan: ExtractPlan, device, front: str = "level"):
     """Detect-only probe (pipeline.py:787-804): pyramid and the dense
-    per-octave candidate collection (mask K1 on each octave's dense
-    stack, compaction), no refinement or later stage, so of the two
+    candidate collection (one mask launch of K1 over the octaves' dense
+    stacks, compaction per octave), no refinement or later stage, so of the two
     route keywords only ``front`` applies. The returned function maps
     one image to its per-octave candidate counts, i64 numpy
     [n_octaves]."""
@@ -410,7 +390,9 @@ def make_probe_fn(plan: ExtractPlan, device, front: str = "level"):
     def probe(img) -> np.ndarray:
         img = torch.as_tensor(np.asarray(img)).to(dev)
         _, dogs = build_pyramid(img, plan.pyramid, front=front)
-        cands = [_ext.collect_candidates(dog, cfg, plan.ext_caps[o])
+        masks = _ext.candidate_masks(dogs, cfg)
+        cands = [_ext.collect_candidates(dog, cfg, plan.ext_caps[o],
+                                         mask=masks[o][0])
                  for o, dog in enumerate(dogs)]
         return torch.stack([c.n_found for c in cands]).cpu().numpy()
 

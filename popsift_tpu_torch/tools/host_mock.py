@@ -16,7 +16,8 @@ preprocessing steps are textual: ``kernel<<<grid, block, smem,
 stream>>>(args);`` becomes a call of the stand-in's ``mock_launch`` and
 ``extern __shared__ T name[];`` a pointer into its buffer. Blocks run one
 after another, so this says nothing about races between blocks or about
-speed; ``tests/test_torch_kernels_host.py`` uses it for K4 and K5.
+speed; ``tests/test_torch_kernels_host.py`` uses it for K1, K3, K4 and
+K5.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ def rewrite(source: str) -> str:
         return (f"mock_launch(dim3({grid}), dim3({block}), {smem}, "
                 f"[&]{{ {m.group(1)}({m.group(3)}); }});")
 
-    source = re.sub(r"([\w:]+(?:<\w+>)?)<<<(.*?)>>>\((.*?)\);", launch,
+    source = re.sub(r"([\w:]+(?:<[\w, ]+>)?)<<<(.*?)>>>\((.*?)\);", launch,
                     source, flags=re.S)
     return re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
                   r"\1* \2 = (\1*)mock_dyn_smem;", source)

@@ -3,9 +3,11 @@
 // thread (tools/host_mock.py builds with it). Blocks of a grid run one after
 // another, each with all its threads alive: __syncthreads and __syncwarp are
 // std::barriers, __shfl_xor_sync exchanges through a per-warp buffer between
-// two warp barriers, __shared__ variables are statics (one block at a time)
-// and dynamic shared memory is a buffer of the launch. It provides what
-// desc.cu and blur_dog.cu use; a source that needs more (atomics, other
+// two warp barriers (__shfl_up_sync, __shfl_down_sync and __any_sync
+// likewise, a lane without a source keeping its own value), __shared__
+// variables are statics (one block at a time) and dynamic shared memory is a
+// buffer of the launch. It provides what desc.cu, blur_dog.cu,
+// extrema_mask.cu and orient.cu use; a source that needs more (atomics, other
 // shuffles, textures) has to add it here. It checks indexing and arithmetic,
 // not races between blocks, and it is no measure of speed.
 #pragma once
@@ -49,6 +51,27 @@ inline float __shfl_xor_sync(unsigned, float v, int d) {
     float r = mock_xchg[w][l ^ d];
     mock_warp_bar[w]->arrive_and_wait();
     return r;
+}
+inline float mock_shfl(float v, int delta) {
+    int t = mock_tid(), w = t >> 5, l = t & 31, src = l + delta;
+    int n = std::min(32, (int)(blockDim.x * blockDim.y * blockDim.z) - 32 * w);
+    mock_xchg[w][l] = v;
+    mock_warp_bar[w]->arrive_and_wait();
+    float r = (src >= 0 && src < n) ? mock_xchg[w][src] : v;
+    mock_warp_bar[w]->arrive_and_wait();
+    return r;
+}
+inline float __shfl_up_sync(unsigned, float v, int d) { return mock_shfl(v, -d); }
+inline float __shfl_down_sync(unsigned, float v, int d) { return mock_shfl(v, d); }
+inline int __any_sync(unsigned, int pred) {
+    int t = mock_tid(), w = t >> 5, l = t & 31;
+    int n = std::min(32, (int)(blockDim.x * blockDim.y * blockDim.z) - 32 * w);
+    mock_xchg[w][l] = pred ? 1.f : 0.f;
+    mock_warp_bar[w]->arrive_and_wait();
+    int any = 0;
+    for (int i = 0; i < n; ++i) any |= mock_xchg[w][i] != 0.f;
+    mock_warp_bar[w]->arrive_and_wait();
+    return any;
 }
 inline int __float2int_rn(float v) { return (int)std::nearbyintf(v); }
 using std::max; using std::min;

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time the descriptor kernel (K4) and the blur + DoG kernel (K5) the way
+"""Time the extremum-mask kernel (K1), the orientation-histogram kernel
+(K3), the descriptor kernel (K4) and the blur + DoG kernel (K5) the way
 the extraction path calls them, on one NVIDIA GPU.
 
     python3 popsift_tpu_torch/tools/kernel_times.py [--tree DIR] [--reps N]
@@ -8,7 +9,8 @@ the extraction path calls them, on one NVIDIA GPU.
 Runs ``extract`` once on the 1080p bench frame (``bench.make_frame``,
 seed 0, ``SiftConfig(extrema_capacity=8192)``), times ``extract`` end to
 end (warm, host clock around work that ends in a synchronize), records
-every call the path makes to the K4 and K5 wrappers with its arguments,
+every call the path makes to the K1, K3, K4 and K5 wrappers with its
+arguments,
 and replays each kernel's calls of one frame: the median time per frame
 over ``--reps`` replays with CUDA events around the wrapper calls, and
 the device time of the kernels themselves from one ``torch.profiler`` pass over a replay
@@ -21,8 +23,8 @@ kernel, unpack the other commit beside this one and run the script on
 the two trees in turns (other, this, this, other) in one process chain on one
 card: times taken on different cards or days do not compare.
 
-``--sass`` also compiles ``csrc/desc.cu`` and ``csrc/blur_dog.cu`` of the
-tree with ``-Xptxas -v`` and prints each kernel's registers, spills and
+``--sass`` also compiles ``csrc/extrema_mask.cu``, ``csrc/orient.cu``,
+``csrc/desc.cu`` and ``csrc/blur_dog.cu`` of the tree with ``-Xptxas -v`` and prints each kernel's registers, spills and
 shared memory, and the number of SASS instructions ``cuobjdump -sass``
 lists for it.
 
@@ -47,14 +49,14 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(
 
 def sass_report(tree: str) -> dict:
     """Registers, spills, shared memory and SASS instruction counts of
-    the K4 and K5 sources of ``tree``."""
+    the K1, K3, K4 and K5 sources of ``tree``."""
     sys.path.insert(0, tree)
     from popsift_tpu_torch.ops.kernels import build
     nvcc = build.find_nvcc()
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for name in ("desc", "blur_dog"):
+        for name in ("extrema_mask", "orient", "desc", "blur_dog"):
             src = os.path.join(tree, "popsift_tpu_torch", "csrc", f"{name}.cu")
             cubin = os.path.join(tmp, f"{name}.cubin")
             res = subprocess.run(
@@ -105,6 +107,8 @@ def main(argv=None) -> int:
 
     from popsift_tpu_torch.config import SiftConfig
     from popsift_tpu_torch.ops import descriptors as D
+    from popsift_tpu_torch.ops import extrema as E
+    from popsift_tpu_torch.ops import orientation as O
     from popsift_tpu_torch.ops import pyramid as P
     from popsift_tpu_torch.pipeline import build_extract_plan, extract
 
@@ -127,7 +131,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize(dev)
         frame_ms.append((time.perf_counter() - t0) * 1e3)
 
-    calls = {"K4": [], "K5": []}
+    calls = {"K1": [], "K3": [], "K4": [], "K5": []}
 
     def record(kernel, mod, attr):
         fn = getattr(mod, attr, None)
@@ -139,6 +143,10 @@ def main(argv=None) -> int:
             return fn(*a, **k)
         setattr(mod, attr, wrapper)
 
+    record("K1", E, "candidate_mask")
+    record("K1", E, "candidate_mask_octaves")
+    record("K3", O, "orientation_hist")
+    record("K3", O, "orientation_hist_octaves")
     record("K4", D, "descriptor_loop")
     record("K4", D, "descriptor_loop_octaves")
     record("K5", P, "blur_dog")

@@ -11,8 +11,9 @@ and refinement state exact (the kernels are built with -fmad=false and
 follow the plain version op for op); histograms and descriptors, the
 patch-fed and bucketed entries included, within 1e-5 x the row's max
 (fixed-order sums in another order than the plain version's reductions).
-K4's launch over several octaves equals its single-octave launches bit
-for bit, and two runs of it give the same bits.
+K1's, K3's and K4's launches over several octaves equal their
+single-octave launches bit for bit, and two runs of K3 and K4 give the
+same bits.
 """
 
 import math
@@ -63,6 +64,40 @@ def test_extrema_mask_kernel(dev):
     assert ref.sum() > 0 and torch.equal(got, ref)
 
 
+@pytest.mark.parametrize("shape", [(5, 97, 131), (5, 64, 244), (3, 9, 15),
+                                   (8, 33, 40), (5, 1, 7), (5, 2, 2)])
+def test_extrema_mask_kernel_shapes(dev, shape):
+    """Odd and aligned widths, several strips and bands, stacks of other
+    depths than five, planes without an interior."""
+    dog = _dog(dev, *shape, seed=shape[1])
+    got = extrema_mask.candidate_mask(dog, 2.72)
+    assert torch.equal(got, extrema_mask.candidate_mask_torch(dog, 2.72))
+
+
+@pytest.mark.parametrize("F", [1, 3])
+def test_extrema_mask_octaves_kernel(dev, F):
+    """One launch over four octaves of F frames: bool views, equal to the
+    plain version and to the single-octave and batched entries, one
+    launch counted."""
+    dims = [(96, 244), (48, 122), (24, 61), (12, 31)]
+    dogs = [torch.cat([_dog(dev, 5, h, w, seed=10 * f + h) for f in range(F)])
+            for h, w in dims]
+    before = (extrema_mask.launches_octaves, extrema_mask.launches,
+              extrema_mask.launches_batched)
+    got = extrema_mask.candidate_mask_octaves(dogs, 2.72, F)
+    torch.cuda.synchronize(dev)
+    assert (extrema_mask.launches_octaves, extrema_mask.launches,
+            extrema_mask.launches_batched) == (before[0] + 1, *before[1:])
+    ref = extrema_mask.candidate_mask_octaves_torch(dogs, 2.72, F)
+    for d, g, r in zip(dogs, got, ref):
+        assert g.dtype == torch.bool and g.shape == (F, 3, *d.shape[1:])
+        assert r.sum() > 0 and torch.equal(g, r)
+        assert torch.equal(g.view(torch.uint8),
+                           extrema_mask.candidate_mask_batched(d, F, 2.72))
+        assert torch.equal(g[F - 1].view(torch.uint8),
+                           extrema_mask.candidate_mask(d[5 * (F - 1):], 2.72))
+
+
 @pytest.mark.parametrize("vlfeat", [False, True])
 def test_refine_kernel(dev, vlfeat):
     cfg = SiftConfig(sift_mode="vlfeat" if vlfeat else "popsift")
@@ -93,6 +128,39 @@ def test_orientation_kernel(dev):
     got = orient.orientation_hist(blur, x, y, s, lv, valid, 180, 23)
     ref = orient.orientation_hist_torch(blur, x, y, s, lv, valid, 180, 23)
     assert torch.all(got[180:] == 0) and _rel_rows(got, ref)
+
+
+@pytest.mark.parametrize("F", [1, 2])
+def test_orientation_octaves_kernel(dev, F):
+    """One launch over three octaves of F frames (one octave without a
+    valid row) equals the single-octave launches on each frame's own
+    layers bit for bit, writes zeros for rows that are not valid into an
+    output it did not fill, counts one launch, gives the same bits twice."""
+    shapes = [(6, 140, 170, 96), (6, 70, 85, 40), (6, 35, 43, 24)]
+    blurs = [torch.rand((F * L, H, W), device=dev) * 255
+             for L, H, W, _ in shapes]
+    ends = np.cumsum([n for *_, n in shapes]).tolist()
+    cols, singles = [], []
+    for f in range(F):
+        for o, (L, H, W, n) in enumerate(shapes):
+            x, y, s, lv, _, valid = _keypoints(dev, L, H, W, n,
+                                               seed=30 + 3 * f + o)
+            s = s.clamp(max=0.04 * min(H, W) + 1.7)
+            if o == 1:
+                valid = torch.zeros_like(valid)
+            cols.append((x, y, s, lv, valid))
+            singles.append(orient.orientation_hist(
+                blurs[o][f * L:(f + 1) * L], x, y, s, lv, valid, n, 23))
+    args = [torch.cat([c[i] for c in cols]) for i in range(5)]
+    b0, b1 = orient.launches_octaves, orient.launches
+    got = orient.orientation_hist_octaves(blurs, ends, *args, 23, F)
+    assert (orient.launches_octaves, orient.launches) == (b0 + 1, b1)
+    assert torch.equal(got, torch.cat(singles))
+    assert torch.all(got[~args[4]] == 0) and got[args[4]].abs().sum() > 0
+    assert torch.equal(got, orient.orientation_hist_octaves(
+        blurs, ends, *args, 23, F))
+    assert _rel_rows(got, orient.orientation_hist_octaves_torch(
+        blurs, ends, *args, 23, F))
 
 
 def test_descriptor_kernel(dev):

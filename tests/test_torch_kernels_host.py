@@ -1,15 +1,17 @@
-"""The CUDA sources of K4 and K5 on the CPU, against their plain versions.
+"""The CUDA sources of K1, K3, K4 and K5 on the CPU, against their plain
+versions.
 
-``popsift_tpu_torch/tools/host_mock.py`` compiles ``csrc/desc.cu`` and
-``csrc/blur_dog.cu`` with g++ against a stand-in for the CUDA runtime
-(one std::thread per CUDA thread) and the tests call the C entry points
-on CPU tensors: the kernels' own indexing, tile boxes, rings, bands and
-summation order run here, not a model of them. They need g++ and skip
-without it. Tolerances as on the card: blur and DoG levels and the pick
-bit-equal (``-ffp-contract=off`` mirrors ``-fmad=false``), descriptors
-within 1e-5 x the row's max of the plain version (another summation
-order), the launch over several octaves bit-equal to the single-octave
-launches.
+``popsift_tpu_torch/tools/host_mock.py`` compiles ``csrc/extrema_mask.cu``,
+``csrc/orient.cu``, ``csrc/desc.cu`` and ``csrc/blur_dog.cu`` with g++
+against a stand-in for the CUDA runtime (one std::thread per CUDA thread)
+and the tests call the C entry points on CPU tensors: the kernels' own
+indexing, strips, tile boxes, rings, bands and summation order run here,
+not a model of them. They need g++ and skip without it. Tolerances as on
+the card: masks, blur and DoG levels and the pick bit-equal
+(``-ffp-contract=off`` mirrors ``-fmad=false``), histograms and
+descriptors within 1e-5 x the row's max of the plain version (another
+summation order), a launch over several octaves bit-equal to the
+single-octave launches.
 """
 
 import ctypes
@@ -23,6 +25,8 @@ from popsift_tpu_torch.ops import patches
 from popsift_tpu_torch.ops.kernels import blur_dog as K5
 from popsift_tpu_torch.ops.kernels import build
 from popsift_tpu_torch.ops.kernels import desc as K4
+from popsift_tpu_torch.ops.kernels import extrema_mask as K1
+from popsift_tpu_torch.ops.kernels import orient as K3
 from popsift_tpu_torch.tools import host_mock
 
 torch.set_num_threads(1)
@@ -219,3 +223,141 @@ def test_descriptor_source_patch_entry(desc_lib):
     ref = K4.descriptor_loop_patches_torch(p, y0, x0, x, y, s, ang, valid,
                                            H, W)
     assert rc == 0 and ref.abs().sum() > 0 and _within(out, ref)
+
+
+@pytest.fixture(scope="module")
+def mask_lib():
+    return _library("extrema_mask")
+
+
+@pytest.fixture(scope="module")
+def orient_lib():
+    return _library("orient")
+
+
+def _dog_stack(rng, n, H, W):
+    """Smooth f32[n, H, W] layers with plateaus (ties must stay false)
+    and a lower half under the contrast gate (rows the kernel skips)."""
+    d = rng.normal(size=(n, H, W)).astype(np.float32)
+    d = (d + np.roll(d, 1, 1) + np.roll(d, 1, 2)) * 20
+    d[:, : H // 3, : W // 3] = np.round(d[:, : H // 3, : W // 3] / 16) * 16
+    d[:, H // 2 + 1:] *= 0.01
+    return torch.from_numpy(d)
+
+
+def _masks(lib, dogs, F, thr1):
+    outs = [torch.full((F, d.shape[0] // F - 2, *d.shape[1:]), 7,
+                       dtype=torch.uint8) for d in dogs]
+    table = np.asarray([[d.data_ptr(), o.data_ptr(), d.shape[0] // F,
+                         *d.shape[1:]] for d, o in zip(dogs, outs)], np.int64)
+    assert lib.ps_extrema_mask_octaves(table.ctypes.data, len(dogs), F, thr1,
+                                       None) == 0
+    return outs
+
+
+@pytest.mark.parametrize("D,H,W,F", [
+    (5, 37, 52, 1),      # vector loads, five bands, one strip
+    (5, 35, 131, 1),     # odd width: scalar loads, two strips
+    (5, 70, 244, 2),     # three strips, nine bands, two frames
+    (3, 9, 15, 1), (4, 9, 16, 2), (7, 12, 20, 1), (9, 6, 8, 1),
+    (5, 1, 9, 1), (5, 2, 2, 1), (5, 1, 1, 2), (5, 3, 3, 1)])
+def test_extrema_mask_source(mask_lib, D, H, W, F):
+    """Strips, bands and layer groups, planes of one and two pixels, odd
+    widths, frames that must not see each other's layers."""
+    rng = np.random.default_rng(D * H + W)
+    dog = _dog_stack(rng, F * D, H, W)
+    got = _masks(mask_lib, [dog], F, 2.5)[0]
+    ref = K1.candidate_mask_batched_torch(dog, F, 2.5)
+    assert torch.equal(got, ref)
+    if H > 8 and W > 8:
+        assert ref.sum() > 0
+
+
+def test_extrema_mask_source_over_octaves(mask_lib):
+    """One launch over four octaves of two frames equals the launches of
+    each octave alone, and an unaligned stack takes the scalar path."""
+    rng = np.random.default_rng(8)
+    dims = [(40, 124), (20, 62), (10, 31), (5, 16)]
+    dogs = [_dog_stack(rng, 10, h, w) for h, w in dims]
+    shifted = torch.zeros(10 * 40 * 124 + 1)
+    shifted[1:] = dogs[0].reshape(-1)
+    dogs[0] = shifted[1:].view(10, 40, 124)       # 4 bytes off alignment
+    got = _masks(mask_lib, dogs, 2, 2.5)
+    for d, g in zip(dogs, got):
+        assert torch.equal(g, K1.candidate_mask_batched_torch(d, 2, 2.5))
+        assert torch.equal(g, _masks(mask_lib, [d], 2, 2.5)[0])
+    assert mask_lib.ps_extrema_mask_octaves(None, 0, 1, 2.5, None) != 0
+
+
+def _keypoint_rows(rng, L, H, W, n, p_valid=0.8):
+    x = rng.uniform(0, W - 1, n).astype(np.float32)
+    y = rng.uniform(0, H - 1, n).astype(np.float32)
+    x[:6] = [0.2, W - 1.2, W / 2, W / 2, 1.0, W - 2.0]     # at the edges
+    y[:6] = [H / 2, H / 2, 0.3, H - 1.1, 1.0, H - 2.0]
+    s = rng.uniform(1.6, max(2.0, min(5.1, 0.1 * min(H, W))), n).astype(
+        np.float32)
+    lv = rng.integers(-1, L + 1, n).astype(np.int64)         # clipped
+    valid = rng.random(n) < p_valid
+    return [torch.from_numpy(a) for a in (x, y, s, lv, valid)]
+
+
+def _hists(lib, blurs, row_ends, x, y, s, lv, valid, F):
+    out = torch.full((x.shape[0], 36), -1.0)
+    table = np.asarray([[b.data_ptr(), b.shape[0] // F, *b.shape[1:], e]
+                        for b, e in zip(blurs, row_ends)], np.int64)
+    assert lib.ps_orientation_hist_octaves(
+        table.ctypes.data, len(blurs), x.shape[0], x.shape[0] // F,
+        x.data_ptr(), y.data_ptr(), s.data_ptr(), lv.data_ptr(),
+        valid.view(torch.uint8).data_ptr(), out.data_ptr(), None) == 0
+    return out
+
+
+@pytest.mark.parametrize("shape,n", [((6, 60, 80), 40), ((4, 20, 24), 12),
+                                     ((3, 5, 4), 8)])
+def test_orientation_source(orient_lib, shape, n):
+    """Keypoints at the image edge, windows wider than the image, levels
+    past the stack (clipped), invalid rows written as zeros."""
+    rng = np.random.default_rng(shape[1])
+    blur = torch.from_numpy(rng.random(shape).astype(np.float32) * 255)
+    x, y, s, lv, valid = _keypoint_rows(rng, *shape, n)
+    got = _hists(orient_lib, [blur], [n], x, y, s, lv, valid, 1)
+    ref = K3.orientation_hist_torch(blur, x, y, s, lv, valid, n, 23)
+    assert _within(got, ref) and torch.all(got[~valid] == 0)
+    assert shape[1] < 10 or ref.abs().sum() > 0
+    assert torch.equal(got, _hists(orient_lib, [blur], [n], x, y, s, lv,
+                                   valid, 1))
+
+
+def test_orientation_source_over_octaves(orient_lib):
+    """Two frames x three octaves in one launch (the middle octave all
+    invalid) against the plain version and, bit for bit, against
+    single-octave launches on each frame's own layers."""
+    rng = np.random.default_rng(5)
+    F, shapes, ns = 2, [(6, 60, 80), (6, 30, 40), (6, 15, 20)], [14, 9, 8]
+    blurs = [torch.from_numpy(rng.random((F * L, H, W)).astype(np.float32)
+                              * 255) for L, H, W in shapes]
+    ends = np.cumsum(ns).tolist()
+    cols = [[] for _ in range(5)]
+    for f in range(F):
+        for o, (shape, n) in enumerate(zip(shapes, ns)):
+            rows = _keypoint_rows(rng, *shape, n, 0.0 if o == 1 else 0.8)
+            for c, r in zip(cols, rows):
+                c.append(r)
+    x, y, s, lv, valid = (torch.cat(c).contiguous() for c in cols)
+    got = _hists(orient_lib, blurs, ends, x, y, s, lv, valid, F)
+    ref = K3.orientation_hist_octaves_torch(blurs, ends, x, y, s, lv, valid,
+                                            23, F)
+    assert ref.abs().sum() > 0 and _within(got, ref)
+    assert torch.all(got[~valid] == 0)
+    k = 0
+    for f in range(F):
+        for o, ((L, H, W), n) in enumerate(zip(shapes, ns)):
+            sl = slice(k, k + n)
+            one = _hists(orient_lib, [blurs[o][f * L:(f + 1) * L]], [n],
+                         x[sl].contiguous(), y[sl].contiguous(),
+                         s[sl].contiguous(), lv[sl].contiguous(),
+                         valid[sl].contiguous(), 1)
+            assert torch.equal(got[sl], one), (f, o)
+            k += n
+    assert orient_lib.ps_orientation_hist_octaves(
+        None, 3, 10, 3, None, None, None, None, None, None, None) != 0
