@@ -15,69 +15,76 @@ any failed phase raises and the script exits non-zero:
    1e-4 on the 0..255 scale and its pick of every second pixel equal to
    the slice, masks exact (K1's one launch over all octaves, its
    single-octave entry and, on four frames, seeds 0-3, its batched entry
-   and its one launch over all octaves of the batch), refinement state
-   within 1e-5
-   with the accept masks exact, histograms and descriptors within 1e-5 x
-   the row's max; K3's one launch over all octaves bit-equal to its
-   single-octave launches and to a second run; the batched entry of K2 on
-   the four frames, exact; the window copy K6 and its batched entry, exact;
-   K5's one launch over the thin octaves (34 x 60 and smaller) bit-equal
-   to its plain version and to the planes of the level launches;
-   the chain front K7 on every octave against K5's planes (bit-equal, or
-   within 1e-4 with the difference printed); K4's one launch over all
-   octaves bit-equal to its single-octave launches and to a second run;
-   the patch entry of K4 on the
-   densest octave's real jobs against its plain version and against K4,
-   and the bucketed launches of K3 and K4 against the single launch on the
-   same rows, within 1e-5 x the row's max; median time of kernel and
-   plain over 20 runs, timed with CUDA events, and beside them the one
-   PyTorch library call that computes the same function where there is
-   one (two ``F.conv2d`` passes and a subtraction for K5 and K7, one
-   advanced-indexing gather for K6) and the least time the card could
-   take (the bound, see :func:`bound_ms`);
+   and its one launch over all octaves of the batch); the compaction of
+   all octaves' masks entry for entry equal to ``_compact_mask`` (rows,
+   padding rows, ``n_found``, ``n_dropped``) on the frame, on the four
+   frames and on a saturated plan (``extrema_capacity=256``); K2's one
+   launch over all octaves bit-equal to its plain version and to its
+   one-octave launches, on the frame and on the four frames (against its
+   batched entry there); refinement state of the one-octave entries
+   within 1e-5 with the accept masks exact, histograms and descriptors
+   within 1e-5 x the row's max; K3's one launch over all octaves
+   bit-equal to its single-octave launches and to a second run; the
+   window copy K6 and its batched entry, exact; K5's one launch over the
+   thin octaves (34 x 60 and smaller) bit-equal to its plain version and
+   to the planes of the level launches; the chain front K7 on every
+   octave against K5's planes (bit-equal, or within 1e-4 with the
+   difference printed); K4's one launch over all octaves bit-equal to
+   its single-octave launches and to a second run; the patch entry of K4
+   on the densest octave's real jobs against its plain version and
+   against K4, and the bucketed launches of K3 and K4 against the single
+   launch on the same rows, within 1e-5 x the row's max; median time of
+   kernel and plain over 20 runs, timed with CUDA events, and beside
+   them the one PyTorch library call that computes the same function
+   where there is one (two ``F.conv2d`` passes and a subtraction for K5
+   and K7, one advanced-indexing gather for K6) and the least time the
+   card could take (the bound, see :func:`bound_ms`);
 4. the main path ``PopSift(SiftConfig(extrema_capacity=8192),
    device="cuda").enqueue(frame).get()`` with every launch counter reset
    just before it: 2110 keypoints / 2505 descriptors, no dropped
-   candidate, every kernel of the path launched, K1, K3 and K4 exactly
-   once (over all octaves) and their single-octave entries not at all;
-   finite outputs;
-   the two golden scenes (tests/golden) within the golden tolerances; warm
+   candidate, every kernel of the path launched, K1, the compaction, K2,
+   K3 and K4 exactly once (over all octaves) and their one-octave
+   entries not at all; finite outputs; then ``extract`` of the frame
+   already on the card under ``torch.cuda.set_sync_debug_mode("error")``
+   (no synchronising call), equal to the enqueued run in every field, and
+   one profiler pass of it (device ops, device busy time, host launch
+   calls, stream syncs: 0, sorts: 0, launch calls under 700); the two
+   golden scenes (tests/golden) within the golden tolerances; warm
    ms/frame of the kernel path and of the plain-PyTorch path on the
    card, and the counts of the ``SiftConfig()`` default;
 5. the batch path ``enqueue_batch`` of the four frames, counters reset
    just before it: K5 once per level of the wide octaves and once for
-   all thin octaves, batched K2 once per octave, K1, K3 and K4 once for
-   the whole batch; each frame equal to its own
-   ``enqueue`` (counts, masks and integer fields exact, float fields
-   bit-equal or within 1e-6 x the field's magnitude); warm ms/frame of the batch against single-frame
-   ``enqueue`` and the plain batch; then ``PopSift.calibrate([frame])``
-   with the counters reset just before it (its detect-only probe
-   launches K5 and K1, once over all octaves, and nothing else) and
-   ``enqueue``:
-   no octave saturates its calibrated capacity;
+   all thin octaves, K1, the compaction, K2, K3 and K4 once for the
+   whole batch; each frame equal to its own ``enqueue`` (counts, masks
+   and integer fields exact, float fields bit-equal or within 1e-6 x the
+   field's magnitude); ``extract_batch`` of the frames on the card with
+   the checks of phase 4; warm ms/frame of the batch against
+   single-frame ``enqueue`` and the plain batch; then
+   ``PopSift.calibrate([frame])`` with the counters reset just before it
+   (its detect-only probe launches K5, K1 and the compaction, once over
+   all octaves, and nothing else) and ``enqueue``: no octave saturates
+   its calibrated capacity;
 6. the other routes at full 1080p width, counters reset before each run:
    ``PopSift(cfg, device="cuda", detect="windows")`` ``.enqueue`` and
    ``.enqueue_batch`` (2110 / 2505 on frame 0, nothing dropped, K6 once
-   per octave and K2 not at all, K1, K3 and K4 once a run, every frame
-   equal to its ``detect="fused"`` result); ``front="chain"`` the same
-   way (K7 launched, K5 not); the entries that no extraction path calls
-   (the patch entry of K4, the bucketed launches of K3 and K4 with their
-   single-octave entries beneath them, the single-octave and batched
-   entries of K1) driven once on
-   the densest octave's rows; warm ms/frame of each route, interleaved
-   with the default route.
+   per octave and K2 not at all, K1, the compaction, K3 and K4 once a
+   run, every frame equal to its ``detect="fused"`` result);
+   ``front="chain"`` the same way (K7 launched, K5 not); the entries that
+   no extraction path calls (the patch entry of K4, the bucketed
+   launches of K3 and K4 with their single-octave entries beneath them,
+   the single-octave and batched entries of K1 and of K2, the latter
+   held bit-equal to K2's all-octave launch) driven once on the densest
+   octave's rows; warm ms/frame of each route, interleaved with the
+   default route.
 
 TF32 is switched off for matmuls and cuDNN (the plain versions must run
 in full f32). The second line before the last is a JSON object with one
 entry per kernel entry (``launches`` from the run of its path: phase 4
-for the entries of the single-frame path, phase 5 for batched K2, phase
-6 for the window copy, the chain front and the entries off every path);
-the
-last line is the device record. ``--profile DIR`` also writes a
-torch.profiler table of one run of the main path, of the window route
-and of the chain front to DIR/profile*.txt and prints each run's
-device-op count, device busy time and the device time of the port's own
-kernels.
+for the entries of the single-frame path, phase 6 for the window copy,
+the chain front and the entries off every path); the last line is the
+device record. ``--profile DIR`` also writes a torch.profiler table of
+one run of the main path, of the window route and of the chain front to
+DIR/profile*.txt and prints each run's counts.
 """
 
 from __future__ import annotations
@@ -99,42 +106,48 @@ FRAME_HW = (1080, 1920)
 N_FRAMES = 4           # the batch of phases 3 and 5: make_frame seeds 0..3
 BENCH_KEYPOINTS, BENCH_DESCRIPTORS = 2110, 2505
 # kernel entries of each path (phase 4: single frame, phase 5: batch)
-MAIN_PATH = ("blur_dog", "blur_dog_thin", "extrema_mask_octaves", "refine",
-             "orientation_hist_octaves", "descriptor_loop_octaves")
-BATCH_PATH = ("blur_dog", "blur_dog_thin", "extrema_mask_octaves",
-              "refine_batched", "orientation_hist_octaves",
-              "descriptor_loop_octaves")
+MAIN_PATH = ("blur_dog", "blur_dog_thin", "extrema_mask_octaves", "compact",
+             "refine_octaves", "orientation_hist_octaves",
+             "descriptor_loop_octaves")
+BATCH_PATH = MAIN_PATH
 # the calibration probe
-PROBE_PATH = ("blur_dog", "blur_dog_thin", "extrema_mask_octaves")
+PROBE_PATH = ("blur_dog", "blur_dog_thin", "extrema_mask_octaves", "compact")
 # phase 6: the window route (single, batch), the chain front, and the
 # entries that no extraction path calls
 WINDOW_PATH = ("blur_dog", "blur_dog_thin", "extrema_mask_octaves",
-               "extract_windows", "orientation_hist_octaves",
+               "compact", "extract_windows", "orientation_hist_octaves",
                "descriptor_loop_octaves")
 WINDOW_BATCH_PATH = ("blur_dog", "blur_dog_thin", "extrema_mask_octaves",
-                     "extract_windows_batched", "orientation_hist_octaves",
-                     "descriptor_loop_octaves")
-CHAIN_PATH = ("blur_chain", "extrema_mask_octaves", "refine",
-              "orientation_hist_octaves", "descriptor_loop_octaves")
+                     "compact", "extract_windows_batched",
+                     "orientation_hist_octaves", "descriptor_loop_octaves")
+CHAIN_PATH = ("blur_chain", "extrema_mask_octaves", "compact",
+              "refine_octaves", "orientation_hist_octaves",
+              "descriptor_loop_octaves")
 # the single-octave K3 and K4 entries run beneath the bucketed ones
 OFF_PATH = ("descriptor_loop_patches", "orientation_hist_bucketed",
             "descriptor_loop_bucketed", "descriptor_loop", "orientation_hist",
-            "extrema_mask", "extrema_mask_batched")
-# the launches over all octaves: exactly once on every extraction path
-ONCE = ("extrema_mask_octaves", "orientation_hist_octaves",
+            "extrema_mask", "extrema_mask_batched", "refine",
+            "refine_batched")
+# the launches over all octaves (and frames): exactly once on every
+# extraction path (K2's on the fused routes, see FUSED_ONCE)
+ONCE = ("extrema_mask_octaves", "compact", "orientation_hist_octaves",
         "descriptor_loop_octaves")
+FUSED_ONCE = ONCE + ("refine_octaves",)
 # which run's counts a kernel entry reports in the JSON line
 LAUNCHES_FROM = {
     "blur_dog": "main", "blur_dog_thin": "main",
-    "extrema_mask_octaves": "main", "refine": "main",
+    "extrema_mask_octaves": "main", "compact": "main",
+    "refine_octaves": "main",
     "orientation_hist_octaves": "main", "descriptor_loop_octaves": "main",
     "descriptor_loop": "off_path", "extrema_mask": "off_path",
     "extrema_mask_batched": "off_path", "orientation_hist": "off_path",
-    "refine_batched": "batch",
+    "refine": "off_path", "refine_batched": "off_path",
     "extract_windows": "windows", "extract_windows_batched": "windows_batch",
     "blur_chain": "chain", "descriptor_loop_patches": "off_path",
     "orientation_hist_bucketed": "off_path",
     "descriptor_loop_bucketed": "off_path"}
+# the main path's host work, checked on one profiler pass of extract
+MAX_LAUNCH_CALLS = 700
 # NVIDIA's data sheet for the H100 SXM: device memory rate and the f32
 # rate outside the tensor cores (every kernel here is plain f32)
 HBM_BYTES_PER_S = 3.35e12
@@ -253,8 +266,8 @@ def kernels_phase(frames: list, dev, reps: int = 20) -> list:
     from popsift_tpu_torch.ops import orientation as O
     from popsift_tpu_torch.ops import patches as PT
     from popsift_tpu_torch.ops.kernels import (ENTRIES, blur_chain, blur_dog,
-                                               desc, extrema_mask, orient,
-                                               refine, window)
+                                               compact, desc, extrema_mask,
+                                               orient, refine, window)
     from popsift_tpu_torch.ops import pyramid as pyr_mod
     from popsift_tpu_torch.ops.pyramid import (build_pyramid,
                                                build_pyramid_frames)
@@ -481,6 +494,66 @@ def kernels_phase(frames: list, dev, reps: int = 20) -> list:
         median_ms(lambda: [refine.refine_state_torch(*a, **kw)
                            for a in args], dev, reps),
         refine_bound(sum(nf), sum(caps)))
+
+    # the compaction of all octaves' masks in one call: every mask byte
+    # read once, the rows (three i32) and counts (two i64) written; one
+    # compare a mask entry
+    masks = E.candidate_masks(dogs, cfg)
+    pin = cfg.compact_block_k
+
+    def compact_bound(ms, caps_, F_):
+        n = sum(m.numel() for m in ms)
+        return bound_ms(n + F_ * (12 * sum(caps_) + 16 * len(caps_)), n)
+
+    def compact_check(ms, caps_, F_, what):
+        """The kernel against ``_compact_mask`` per frame and octave (its
+        plain version), every output entry for entry."""
+        got = compact.compact_octaves(ms, caps_, pin, F_)
+        want = compact.compact_octaves_torch(ms, caps_, pin, F_)
+        sync(dev)
+        bad = [n for n, a, b in zip(("x0", "y0", "z0", "n_found",
+                                     "n_dropped"), got, want)
+               if not torch.equal(a, b)]
+        check(not bad, f"compaction differs from _compact_mask on {what}: "
+              f"{bad}")
+        return got
+
+    crow = compact_check(masks, caps, 1, f"the {nO} octaves of frame 0")
+    check(crow[3][0].tolist() == nf, "compaction counts differ from the "
+          "per-octave collections")
+    sat_caps = build_extract_plan(cfg.replace(extrema_capacity=256),
+                                  *frame.shape).ext_caps
+    sat = compact_check(masks, sat_caps, 1, f"the plan of capacities "
+                        f"{sat_caps}")
+    check(bool((sat[3] == torch.tensor(sat_caps, device=dev)).any()),
+          "the saturated plan saturated no octave")
+    say(f"compaction entry for entry equal to _compact_mask on all {nO} "
+        f"octaves of frame 0 (counts {nf}) and on the capacities "
+        f"{list(sat_caps)} (counts {sat[3][0].tolist()}, dropped "
+        f"{sat[4][0].tolist()}), padding rows included")
+    row(compact.NAME, 0.0,
+        median_ms(lambda: compact.compact_octaves(masks, caps, pin), dev,
+                  reps),
+        median_ms(lambda: compact.compact_octaves_torch(masks, caps, pin),
+                  dev, reps), compact_bound(masks, caps, 1))
+
+    # K2 over all octaves in one launch, on the compaction's rows
+    oargs_k2 = (list(dogs), *crow[:4], caps, 1)
+    so = refine.refine_state_octaves(*oargs_k2, **kw)
+    sp_o = refine.refine_state_octaves_torch(*oargs_k2, **kw)
+    sync(dev)
+    check(bool(torch.equal(so, sp_o)), "K2's launch over all octaves differs "
+          "from its plain version")
+    check(bool(torch.equal(so, sk)), "K2's launch over all octaves differs "
+          "from its single-octave launches")
+    say(f"K2 over all {nO} octaves in one launch: bit-equal to its plain "
+        f"version and to the {nO} single-octave launches")
+    row(refine.NAME_OCTAVES, 0.0,
+        median_ms(lambda: refine.refine_state_octaves(*oargs_k2, **kw), dev,
+                  reps),
+        median_ms(lambda: refine.refine_state_octaves_torch(*oargs_k2, **kw),
+                  dev, reps), refine_bound(sum(nf), sum(caps)))
+    del masks, crow, sat, so, sp_o, oargs_k2
 
     # K6 window copy: the capacity-padded windows of every octave
     WR, WP = E.WINDOW_RADIUS, E.WINDOW_SIDE
@@ -761,6 +834,35 @@ def kernels_phase(frames: list, dev, reps: int = 20) -> list:
         refine_bound(sum(int(c.n_found.sum()) for c in bc), F * sum(caps)),
         what=what)
 
+    # the compaction and K2's all-octave launch on the four frames
+    bmasks = E.candidate_masks(bdogs, cfg, F)
+    brow = compact_check(bmasks, caps, F, f"the {F}-frame batch")
+    check(all(brow[3][:, o].tolist() == c.n_found.tolist()
+              for o, c in enumerate(bc)),
+          "batched compaction counts differ from the per-octave collections")
+    bo_args = (bdogs, *brow[:4], caps, F)
+    bc_live = brow[3].sum()
+    sbo = refine.refine_state_octaves(*bo_args, **kw)
+    check(bool(torch.equal(sbo, refine.refine_state_octaves_torch(
+        *bo_args, **kw))), "K2's launch over all octaves of the batch differs "
+          "from its plain version")
+    boffs = np.concatenate([[0], np.cumsum(caps)]).astype(int)
+    check(all(torch.equal(sbo.view(F, -1, 16)[:, boffs[o]:boffs[o + 1]],
+                          sk[o].view(F, caps[o], 16)) for o in range(nO)),
+          "K2's launch over all octaves of the batch differs from its "
+          "batched launches")
+    c_ms = median_ms(lambda: compact.compact_octaves(bmasks, caps, pin, F),
+                     dev, reps)
+    r_ms = median_ms(lambda: refine.refine_state_octaves(*bo_args, **kw),
+                     dev, reps)
+    say(f"compaction of the {F}-frame batch entry for entry equal to "
+        f"_compact_mask, {c_ms:.4f} ms a batch (bound "
+        f"{compact_bound(bmasks, caps, F)[0]:.4f} ms); K2 over all octaves "
+        f"of the batch bit-equal to its plain version and to its batched "
+        f"launches, {r_ms:.4f} ms a batch in one launch (bound "
+        f"{refine_bound(int(bc_live), F * sum(caps))[0]:.4f} ms)")
+    del bmasks, brow, bo_args, sbo
+
     # batched K6 on the same candidates
     wargs = [(bdogs[o], c.y0, c.x0, c.n_found, F, WR, WP, WP)
              for o, c in enumerate(bc)]
@@ -824,6 +926,84 @@ def golden_phase(dev) -> None:
             f"{len(got['desc'])} descriptors, max errors {errs}")
 
 
+def profile_counts(fn, dev, table: str | None = None) -> dict:
+    """One torch.profiler pass of ``fn()`` (which ends in a synchronize):
+    device ops, device busy time, host launch calls, stream syncs, sort
+    calls and the device time of the port's own kernels; with ``table``
+    also the profiler's tables written to that file."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync(dev)
+    avg = prof.key_averages()
+    if table:
+        with open(table, "w") as fh:
+            for key in ("self_cuda_time_total", "cpu_time_total"):
+                fh.write(avg.table(sort_by=key, row_limit=40))
+                fh.write("\n")
+    dev_ops = [e for e in avg if e.device_type == DeviceType.CUDA]
+    ours = {}       # the port's kernels live in anonymous namespaces
+    for e in dev_ops:
+        m = re.search(r"\(anonymous namespace\)::(\w+_kernel)", e.key)
+        if m and "at::" not in e.key:
+            ours[m.group(1)] = round(ours.get(m.group(1), 0.0)
+                                     + e.self_device_time_total / 1e3, 4)
+    count = lambda pred: sum(e.count for e in avg if pred(e.key))
+    return {"device_ops": sum(e.count for e in dev_ops),
+            "device_busy_ms": round(sum(e.self_device_time_total
+                                        for e in dev_ops) / 1e3, 4),
+            "launch_calls": count(lambda k: "LaunchKernel" in k),
+            "stream_syncs": count(lambda k: "StreamSynchronize" in k),
+            "sorts": count(lambda k: k == "aten::sort"),
+            "copies": count(lambda k: k == "aten::copy_"),
+            "nonzero": count(lambda k: k == "aten::nonzero"),
+            "ours_ms": ours}
+
+
+def no_sync_check(tag: str, fn, want, dev) -> dict:
+    """Run ``fn()`` on frames already on the card (once to warm up: the
+    first run on a plan makes its constant tensors), then again with
+    every launch counter reset just before it, under
+    ``torch.cuda.set_sync_debug_mode("error")`` (any synchronising call
+    raises), hold its result to
+    ``want`` in every field and check that the compaction and K2's
+    all-octave launch ran once and K2's one-octave entries not at all;
+    then one profiler pass of it. Returns the pass's counts."""
+    from popsift_tpu_torch.ops import kernels
+    fn()               # the first run on a plan makes the plan's constants
+    sync(dev)
+    kernels.reset_launch_counts()
+    on_card = dev.type == "cuda"       # a CPU rehearsal has no sync mode
+    if on_card:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fn()
+    finally:
+        if on_card:
+            torch.cuda.set_sync_debug_mode("default")
+    launches = kernels.launch_counts()
+    sync(dev)
+    for name in FUSED_ONCE:
+        check(launches[name] == 1, f"{tag}: {name} launched "
+              f"{launches[name]} times")
+    for name in ("refine", "refine_batched"):
+        check(launches[name] == 0, f"{tag}: {name} launched")
+    for name, a, b in zip(got._fields, got, want):
+        check(a.shape == b.shape and bool(torch.equal(a, b)),
+              f"{tag}: {name} differs from the enqueued run")
+    counts = profile_counts(fn, dev)
+    say(f"{tag}: completed under sync debug mode \"error\", equal to the "
+        f"enqueued run in every field; one profiler pass: {counts}")
+    check(counts["stream_syncs"] == 0, f"{tag}: stream syncs")
+    check(counts["launch_calls"] < MAX_LAUNCH_CALLS,
+          f"{tag}: {counts['launch_calls']} host launch calls (limit "
+          f"{MAX_LAUNCH_CALLS})")
+    check(counts["sorts"] == 0, f"{tag}: a sort ran")
+    return counts
+
+
 def main_path_phase(frame: np.ndarray, dev, reps: int = 5) -> dict:
     from popsift_tpu_torch.api import PopSift
     from popsift_tpu_torch.config import SiftConfig
@@ -842,10 +1022,11 @@ def main_path_phase(frame: np.ndarray, dev, reps: int = 5) -> dict:
     for name in MAIN_PATH:
         check(launches[name] > 0,
               f"kernel {name} was not launched on the main path")
-    for name in ONCE:
+    for name in FUSED_ONCE:
         check(launches[name] == 1,
               f"{name} launched {launches[name]} times on the main path")
-    for name in ("descriptor_loop", "extrema_mask", "orientation_hist"):
+    for name in ("descriptor_loop", "extrema_mask", "orientation_hist",
+                 "refine", "refine_batched"):
         check(launches[name] == 0, f"single-octave {name} ran on the main "
               f"path {launches[name]} times")
     dropped = raw.octave_dropped.tolist()
@@ -861,6 +1042,9 @@ def main_path_phase(frame: np.ndarray, dev, reps: int = 5) -> dict:
           f"descriptor shape {host.descriptors.shape}")
 
     plan = build_extract_plan(cfg, *frame.shape)
+    uploaded = torch.from_numpy(frame).to(dev)
+    no_sync_check("extract of an uploaded frame",
+                  lambda: extract(uploaded, plan, dev), raw, dev)
 
     def run(plain):
         f = extract(frame, plan, dev, plain=plain)
@@ -935,14 +1119,11 @@ def batch_phase(frames: list, dev, reps: int = 3) -> dict:
           f"K5 launched {launches['blur_dog']} times for {n_wide} wide "
           f"octaves and {launches['blur_dog_thin']} times for the "
           f"{n_oct - n_wide} thin ones")
-    check(launches["refine_batched"] == n_oct,
-          f"refine_batched launched {launches['refine_batched']} times for "
-          f"{n_oct} octaves")
-    for name in ONCE:
+    for name in FUSED_ONCE:
         check(launches[name] == 1,
               f"{name} launched {launches[name]} times for the batch")
     for name in ("extrema_mask", "extrema_mask_batched", "refine",
-                 "orientation_hist", "descriptor_loop"):
+                 "refine_batched", "orientation_hist", "descriptor_loop"):
         check(launches[name] == 0, f"{name} ran in the batch")
 
     for f, (frame, job, host) in enumerate(zip(frames, jobs, hosts)):
@@ -963,6 +1144,10 @@ def batch_phase(frames: list, dev, reps: int = 3) -> dict:
           "frame 0 of the batch is not 2110 / 2505 with nothing dropped")
 
     imgs = np.stack(frames)
+    uploaded = torch.from_numpy(imgs).to(dev)
+    no_sync_check(f"extract_batch of {F} uploaded frames",
+                  lambda: extract_batch(uploaded, plan, dev),
+                  extract_batch(imgs, plan, dev), dev)
 
     def run(route):
         if route == "batch":
@@ -997,8 +1182,10 @@ def batch_phase(frames: list, dev, reps: int = 3) -> dict:
     for name, n in probe_launches.items():
         check((n > 0) == (name in PROBE_PATH),
               f"calibration probe launched {name} {n} times")
-    check(probe_launches["extrema_mask_octaves"] == 1,
-          "the probe of one frame launched K1 more than once")
+    check(probe_launches["extrema_mask_octaves"] == 1
+          and probe_launches["compact"] == 1,
+          "the probe of one frame launched K1 or the compaction more than "
+          "once")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         job = ps2.enqueue(frames[0])
@@ -1027,7 +1214,8 @@ def routes_phase(frames: list, dev, reps: int = 7) -> dict:
     from popsift_tpu_torch.ops import kernels
     from popsift_tpu_torch.ops import orientation as O
     from popsift_tpu_torch.ops import patches as PT
-    from popsift_tpu_torch.ops.kernels import desc, extrema_mask, orient
+    from popsift_tpu_torch.ops.kernels import (desc, extrema_mask, orient,
+                                               refine)
     from popsift_tpu_torch.ops.pyramid import CHAIN_GROUP, build_pyramid
     from popsift_tpu_torch.pipeline import (build_extract_plan, extract,
                                             extract_batch)
@@ -1055,7 +1243,7 @@ def routes_phase(frames: list, dev, reps: int = 7) -> dict:
             check(launches[name] > 0, f"{tag}: kernel {name} was not launched")
         for name, n in launches.items():
             check(n == 0 or name in path, f"{tag}: {name} launched {n} times")
-        for name in ONCE:
+        for name in (FUSED_ONCE if "refine_octaves" in path else ONCE):
             check(launches[name] == 1,
                   f"{tag}: {name} launched {launches[name]} times")
         check(hosts[0].getFeatureCount() == BENCH_KEYPOINTS
@@ -1071,12 +1259,12 @@ def routes_phase(frames: list, dev, reps: int = 7) -> dict:
         return launches
 
     n = drive("windows", WINDOW_PATH, False, detect="windows")
-    check(n["extract_windows"] == n_oct and n["refine"] == 0,
+    check(n["extract_windows"] == n_oct and n["refine_octaves"] == 0,
           f"window route launched K6 {n['extract_windows']} times for "
-          f"{n_oct} octaves and K2 {n['refine']} times")
+          f"{n_oct} octaves and K2 {n['refine_octaves']} times")
     n = drive("windows_batch", WINDOW_BATCH_PATH, True, detect="windows")
     check(n["extract_windows_batched"] == n_oct
-          and n["refine_batched"] == 0 and n["refine"] == 0,
+          and n["refine_octaves"] == 0,
           f"batched window route launched K6 "
           f"{n['extract_windows_batched']} times for {n_oct} octaves")
     n = drive("chain", CHAIN_PATH, False, front="chain")
@@ -1122,6 +1310,24 @@ def routes_phase(frames: list, dev, reps: int = 7) -> dict:
     dpt = desc.descriptor_loop_patches(pt, py0, px0, kx[rows], ky[rows],
                                        ks[rows], ang[rows], valid[rows],
                                        *plan.pyramid.dims[od])
+    # K2's one-octave and batched entries on the densest octave, against
+    # the rows of that octave in K2's all-octave launch of the main path
+    cap = plan.ext_caps[od]
+    cand = E.collect_candidates(dogs[od], cfg, cap)
+    kw = dict(maxlevel=cfg.total_levels - 1,
+              vlfeat=cfg.sift_mode == "vlfeat")
+    one = refine.refine_state(dogs[od], cand.x0, cand.y0, cand.z0,
+                              int(cand.n_found), **kw)
+    pair = E.collect_refined_batched(torch.cat([dogs[od], dogs[od]]), 2, cfg,
+                                     cap)
+    rows_o = E.compact_octaves(E.candidate_masks(dogs, cfg), cfg,
+                               plan.ext_caps)
+    full = E.refine_octaves(dogs, rows_o, cfg, plan.ext_caps)
+    check(bool(torch.equal(one, full[sl]))
+          and bool(torch.equal(pair.vals[:cap], one))
+          and bool(torch.equal(pair.vals[cap:], one)),
+          "off-path entries: K2's one-octave or batched entry differs from "
+          "its all-octave launch")
     thr1 = float(np.float32(E._first_threshold(cfg)))
     m1 = extrema_mask.candidate_mask(dogs[od], thr1)
     m2 = extrema_mask.candidate_mask_batched(
@@ -1180,46 +1386,22 @@ def routes_phase(frames: list, dev, reps: int = 7) -> dict:
 
 
 def profile_phase(frame: np.ndarray, dev, out_dir: str) -> None:
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """A torch.profiler table of one run of the main path, of the window
+    route and of the chain front, written to DIR/profile*.txt."""
     from popsift_tpu_torch.config import SiftConfig
     from popsift_tpu_torch.pipeline import build_extract_plan, extract
     plan = build_extract_plan(SiftConfig(extrema_capacity=8192),
                               *frame.shape)
     os.makedirs(out_dir, exist_ok=True)
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     routes = {"profile": {}, "profile_windows": dict(detect="windows"),
               "profile_chain": dict(front="chain")}
     for name, route in routes.items():
         extract(frame, plan, dev, **route)
         sync(dev)
-        with profile(activities=acts) as prof:
-            extract(frame, plan, dev, **route)
-            sync(dev)
         path = os.path.join(out_dir, f"{name}.txt")
-        avg = prof.key_averages()
-        with open(path, "w") as fh:
-            for key in ("self_cuda_time_total", "cpu_time_total"):
-                fh.write(avg.table(sort_by=key, row_limit=40))
-                fh.write("\n")
-        dev_ops = [e for e in avg if e.device_type == DeviceType.CUDA]
-        ours = {}       # the port's kernels live in anonymous namespaces
-        for e in dev_ops:
-            m = re.search(r"\(anonymous namespace\)::(\w+_kernel)", e.key)
-            if m and "at::" not in e.key:
-                ours[m.group(1)] = round(ours.get(m.group(1), 0.0)
-                                         + e.self_device_time_total / 1e3, 3)
-        say(f"{name} {route}: {sum(e.count for e in dev_ops)} device ops, "
-            f"device busy "
-            f"{sum(e.self_device_time_total for e in dev_ops) / 1e3:.3f} ms, "
-            f"host launch calls "
-            f"{sum(e.count for e in avg if 'LaunchKernel' in e.key)}, "
-            f"stream syncs "
-            f"{sum(e.count for e in avg if 'StreamSynchronize' in e.key)}, "
-            f"aten::copy_ calls "
-            f"{sum(e.count for e in avg if e.key == 'aten::copy_')}; "
-            f"the port's kernels (device ms) {ours}; table in {path}")
+        counts = profile_counts(lambda: extract(frame, plan, dev, **route),
+                                dev, table=path)
+        say(f"{name} {route}: {counts}; table in {path}")
 
 
 def main(argv=None) -> int:

@@ -32,6 +32,18 @@
 // the z clamp stays [f*D, f*D + D-1]: a candidate on a frame's top layer
 // never reads the next frame. nz is written frame-local, as the JAX twin's
 // per-job layer base (zbase) leaves it.
+//
+// All-octave entry (ps_refine_octaves; the extraction paths' only entry
+// since the compaction kernel keeps the counts on the device): ONE launch
+// over the candidate rows of all octaves and frames, laid out as the
+// compaction writes them (frame f's octave o at rows f * Ktot + row_off[o]
+// .. + cap[o]). A by-value table per octave holds the DoG stack (f32[F*D, H,
+// W]), its D, H, W and the octave's last row; each thread finds its row's
+// frame and octave, reads the live count n_found[f, o] from the device and
+// refines the row, or writes its zeros. The grid covers every capacity row
+// (73,728 on the 1080p bench plan), so no count sizes the launch and the
+// host reads nothing back; one launch replaces one per octave, and the
+// per-octave outputs need no concatenation.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -180,6 +192,42 @@ __global__ void refine_kernel_batched(const float* __restrict__ dog,
                out + (size_t)k * NOUT);
 }
 
+constexpr int MAX_OCT = 16;
+
+struct RefineTable {
+    const float* dog[MAX_OCT];    // f32[F*D, H, W]
+    int D[MAX_OCT];
+    int H[MAX_OCT];
+    int W[MAX_OCT];
+    int row_end[MAX_OCT];         // rows [row_end[o-1], row_end[o]) of a frame
+    int n;
+};
+
+__global__ void refine_octaves_kernel(RefineTable t,
+                                      const int* __restrict__ x0,
+                                      const int* __restrict__ y0,
+                                      const int* __restrict__ z0,
+                                      const long long* __restrict__ n_found,
+                                      int F, int maxlevel, int vlfeat,
+                                      float* __restrict__ out) {
+    const int rows = t.row_end[t.n - 1];
+    const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (k >= (long long)F * rows) return;
+    const int f = (int)(k / rows);
+    int i = (int)(k - (long long)f * rows);
+    int o = 0;
+    while (i >= t.row_end[o]) ++o;
+    if (o > 0) i -= t.row_end[o - 1];
+    float* dst = out + k * NOUT;
+    if (i >= n_found[(long long)f * t.n + o]) {   // rows past the count: zeros
+        for (int c = 0; c < NOUT; ++c) dst[c] = 0.f;
+        return;
+    }
+    const int D = t.D[o], H = t.H[o], W = t.W[o];
+    const float* vol = t.dog[o] + (size_t)f * (size_t)D * (size_t)H * (size_t)W;
+    refine_one(vol, x0[k], y0[k], z0[k], D, H, W, maxlevel, vlfeat, dst);
+}
+
 }  // namespace
 
 extern "C" int ps_refine(const float* dog, const int* x0, const int* y0,
@@ -201,5 +249,39 @@ extern "C" int ps_refine_batched(const float* dog, const int* x0,
     const int blocks = (F * cap + threads - 1) / threads;
     refine_kernel_batched<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         dog, x0, y0, z0, n_found, F, cap, D, H, W, maxlevel, vlfeat, out);
+    return (int)cudaGetLastError();
+}
+
+// One launch over the candidate rows of n_oct octaves of F frames. `table` is
+// a host array i64[n_oct, 5]: DoG address (f32[F*D, H, W]), D, H, W and the
+// octave's last row within a frame (its first is the previous octave's
+// last); x0, y0, z0 are i32[F * rows], n_found i64[F, n_oct], out
+// f32[F * rows, 16], every row written.
+extern "C" int ps_refine_octaves(const long long* table, int n_oct, int F,
+                                 const int* x0, const int* y0, const int* z0,
+                                 const long long* n_found, int maxlevel,
+                                 int vlfeat, float* out, void* stream) {
+    if (n_oct < 1 || n_oct > MAX_OCT || F < 1) return (int)cudaErrorInvalidValue;
+    RefineTable t = {};
+    t.n = n_oct;
+    long long prev = 0;
+    for (int o = 0; o < n_oct; ++o) {
+        const long long* r = table + 5 * o;
+        if (r[1] < 1 || r[2] < 1 || r[3] < 1 || r[4] < prev
+            || r[4] > 0x7fffffffLL / F)
+            return (int)cudaErrorInvalidValue;
+        t.dog[o] = (const float*)(uintptr_t)r[0];
+        t.D[o] = (int)r[1];
+        t.H[o] = (int)r[2];
+        t.W[o] = (int)r[3];
+        t.row_end[o] = (int)r[4];
+        prev = r[4];
+    }
+    const long long n = (long long)F * t.row_end[n_oct - 1];
+    if (n == 0) return (int)cudaSuccess;
+    const int threads = 128;
+    const int blocks = (int)((n + threads - 1) / threads);
+    refine_octaves_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        t, x0, y0, z0, n_found, F, maxlevel, vlfeat, out);
     return (int)cudaGetLastError();
 }

@@ -5,22 +5,27 @@ Port of :mod:`popsift_tpu.ops.extrema` (default, dense-stack path):
 * the candidate mask runs as kernel K1 (ops/kernels/extrema_mask.py),
   one launch for all octaves of a frame or batch
   (:func:`candidate_masks`); the collections take its masks ready;
-* the compaction keeps ``_compact_mask``'s exact semantics -- ascending
-  flat order, the per-128-block cap ``K``, truncation at the capacity,
-  ``n_found`` and both ways of counting ``n_dropped`` -- with
-  ``nonzero``/``cumsum``/``searchsorted`` in place of the TPU's sort
-  trick;
+* the compaction (:func:`compact_octaves`) runs as the compaction kernel
+  (ops/kernels/compact.py) over the masks of all octaves and frames,
+  with the counts left on the device; it keeps ``_compact_mask``'s exact
+  semantics -- ascending flat order, the per-128-block cap ``K``,
+  truncation at the capacity, ``n_found``, both ways of counting
+  ``n_dropped`` and the padding entries -- and ``_compact_mask`` (its
+  plain version, ops/kernels/compact.py) is held to JAX;
 * the 5-step refinement runs as kernel K2 (ops/kernels/refine.py) on the
-  dense DoG stack, one thread per candidate;
+  dense DoG stacks, one thread per candidate row of all octaves and
+  frames in one launch (:func:`refine_octaves`);
 * the accept tests (:func:`finalize_refined`) run once over all octaves;
-* the patch-window route (the JAX package's default on a TPU): with
-  ``windows=True`` the collection also copies every candidate's
-  [D, 11, 11] DoG window (kernel K6, ops/kernels/window.py), and
+* the patch-window route (the JAX package's default on a TPU):
+  :func:`window_patches` copies every candidate's [D, 11, 11] DoG
+  window (kernel K6, ops/kernels/window.py; the one-octave collections
+  do with ``windows=True``), and
   :func:`refine_patches` refines the merged windows of all octaves in
   one batch of plain tensor math, as JAX's ``refine_candidates`` does;
-* :func:`collect_refined_batched` is the frame-batched form: one mask
-  and one refine launch per octave for F frames' stacks laid back to
-  back on the layer axis, the compaction per frame.
+* :func:`collect_candidates`, :func:`collect_candidates_batched` and
+  :func:`collect_refined_batched` are the one-octave forms (the latter
+  two for F frames' stacks laid back to back on the layer axis), which
+  call K2's one-octave entries; no extraction path calls them.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ import torch
 
 from ..config import SiftConfig
 from ..utils.f32 import div
+from .kernels.compact import (compact_mask_torch, compact_octaves as
+                              _compact_kernel, compact_octaves_torch)
 from .kernels.extrema_mask import (candidate_mask, candidate_mask_batched,
                                    candidate_mask_batched_torch,
                                    candidate_mask_octaves,
@@ -39,12 +46,14 @@ from .kernels.extrema_mask import (candidate_mask, candidate_mask_batched,
                                    candidate_mask_torch)
 from .kernels.refine import (MAX_ITERATIONS, NOUT, refine_loop,
                              refine_state, refine_state_batched,
-                             refine_state_batched_torch, refine_state_torch)
+                             refine_state_batched_torch,
+                             refine_state_octaves,
+                             refine_state_octaves_torch, refine_state_torch)
 from .kernels.window import (extract_windows, extract_windows_batched,
                              extract_windows_batched_torch,
                              extract_windows_torch)
 
-_B = 128   # compaction block width (the TPU lane count)
+_compact_mask = compact_mask_torch    # the compaction's plain version
 # refinement window: 4 moves + 1 derivative halo each side, P = 2R + 1
 WINDOW_RADIUS = MAX_ITERATIONS
 WINDOW_SIDE = 2 * WINDOW_RADIUS + 1
@@ -77,6 +86,17 @@ class CandidateSet(NamedTuple):
     n_found: torch.Tensor  # i64[] ([F] batched)
     n_dropped: torch.Tensor  # i64[] ([F] batched)
     patches: torch.Tensor | None = None   # f32[K, D, P, P], P = 11
+
+
+class CandidateRows(NamedTuple):
+    """Compacted candidates of all octaves of F frames, frame-major: frame
+    f's octave o at rows f * Ktot + offs[o] .. + cap[o]."""
+
+    x0: torch.Tensor         # i32[F*Ktot] column
+    y0: torch.Tensor         # i32[F*Ktot] row
+    z0: torch.Tensor         # i32[F*Ktot] DoG layer
+    n_found: torch.Tensor    # i64[F, n_oct]
+    n_dropped: torch.Tensor  # i64[F, n_oct]
 
 
 class RefinedSet(NamedTuple):
@@ -138,93 +158,78 @@ def candidate_masks(dogs, cfg: SiftConfig, F: int = 1,
     return [_opencv_border(m, cfg) for m in fn(dogs, thr1, F)]
 
 
-def _rank_rows(m: torch.Tensor, K: int):
-    """Per-row compaction of a bool[nb, B] mask: (pos i64[nb, K] lane of
-    the j-th set bit, 0 past the row's count; full_cnt i64[nb])."""
-    nb = m.shape[0]
-    full_cnt = m.sum(1)
-    r, c = m.nonzero(as_tuple=True)          # row-major, ascending
-    start = torch.cumsum(full_cnt, 0) - full_cnt
-    rank = torch.arange(r.numel(), device=m.device) - start[r]
-    keep = rank < K
-    pos = torch.zeros((nb, K), dtype=torch.long, device=m.device)
-    pos[r[keep], rank[keep]] = c[keep]
-    return pos, full_cnt
+def compact_octaves(masks, cfg: SiftConfig, caps, F: int = 1,
+                    plain: bool = False) -> CandidateRows:
+    """Candidate rows of the masks of all octaves of F frames (each bool
+    [F, Z, H_o, W_o], :func:`candidate_masks`) at capacities ``caps``:
+    the compaction kernel (or its plain version with ``plain``), nothing
+    read back."""
+    fn = compact_octaves_torch if plain else _compact_kernel
+    return CandidateRows(*fn(list(masks), tuple(caps), cfg.compact_block_k,
+                             F))
 
 
-def _compact_mask(flat: torch.Tensor, capacity: int, block_k: int = 0):
-    """Compact a sparse bool mask into ``capacity`` flat indices in
-    ascending order, with the per-128-block density clamp of
-    popsift_tpu.ops.extrema._compact_mask (:195-282), entry for entry --
-    the padding entries past the count included. Returns
-    (idx i64[capacity], n_found i64[], n_dropped i64[])."""
-    N = flat.numel()
-    if block_k > 0:
-        K = min(block_k, _B - 1)
-    else:
-        K = int(np.clip(4 * capacity * _B // max(N, 1) + 1, 16, _B - 1))
-    nb = -(-N // _B)
-    dev = flat.device
-    if N == nb * _B and flat.is_contiguous():
-        m = flat.view(nb, _B)
-    else:
-        m = torch.zeros(nb * _B, dtype=torch.bool, device=dev)
-        m[:N] = flat
-        m = m.view(nb, _B)
+def refine_octaves(dogs, rows: CandidateRows, cfg: SiftConfig, caps,
+                   F: int = 1, plain: bool = False) -> torch.Tensor:
+    """f32[F*Ktot, 16] refinement state of the candidate rows of all
+    octaves of F frames (``dogs``: per octave f32[F*D, H_o, W_o]), rows
+    past their octave's count zero: K2's one launch (or its plain
+    version with ``plain``)."""
+    fn = refine_state_octaves_torch if plain else refine_state_octaves
+    return fn(list(dogs), rows.x0, rows.y0, rows.z0, rows.n_found,
+              tuple(caps), F, maxlevel=cfg.total_levels - 1,
+              vlfeat=cfg.sift_mode == "vlfeat")
 
-    if nb <= max(2 * capacity, 512):
-        # small masks: every block is a row (:242-248)
-        pos, full_cnt = _rank_rows(m, K)
-        cnt = full_cnt.clamp(max=K)
-        dropped = (full_cnt - cnt).sum()
-        bids = torch.arange(nb, device=dev)
-        nsel = nb
-    else:
-        # large masks: rows of the first <= capacity non-empty blocks
-        # (:249-267); their ids come from the same compaction one level up
-        blk_cnt = m.sum(1)
-        total_bits = blk_cnt.sum()
-        nonempty = blk_cnt > 0
-        bids, _, _ = _compact_mask(nonempty, capacity, block_k=127)
-        nsel = capacity
-        live = torch.arange(capacity, device=dev) < nonempty.sum()
-        pos, full_cnt = _rank_rows(m[bids] & live[:, None], K)
-        cnt = full_cnt.clamp(max=K)
-        dropped = total_bits - cnt.sum()
 
-    off = torch.cumsum(cnt, 0) - cnt                # exclusive offsets
-    total = torch.clamp(off[-1] + cnt[-1], max=capacity)
-    s = torch.arange(capacity, device=dev)
-    b = (torch.searchsorted(off, s, right=True) - 1).clamp(0, nsel - 1)
-    j = (s - off[b]).clamp(0, K - 1)
-    return bids[b] * _B + pos[b, j], total, dropped
+def window_patches(dogs, rows: CandidateRows, caps, F: int = 1,
+                   plain: bool = False) -> torch.Tensor:
+    """The [F*Ktot, D, 11, 11] refinement windows of the candidate rows
+    of all octaves (frame-major, :func:`compact_octaves`), K6 once per
+    octave (or its plain version with ``plain``): its one-frame entry for
+    one frame, its batched entry for several; rows past their count are
+    zeros."""
+    offs = np.concatenate([[0], np.cumsum(caps)]).astype(int)
+    R, P = WINDOW_RADIUS, WINDOW_SIDE
+    per_octave = []
+    for o, dog in enumerate(dogs):
+        sl = slice(int(offs[o]), int(offs[o + 1]))
+        x0 = rows.x0.view(F, -1)[:, sl].reshape(-1)
+        y0 = rows.y0.view(F, -1)[:, sl].reshape(-1)
+        if F == 1:
+            fn = extract_windows_torch if plain else extract_windows
+            p = fn(dog, y0, x0, rows.n_found[0, o], R, P, P)
+        else:
+            fn = extract_windows_batched_torch if plain \
+                else extract_windows_batched
+            p = fn(dog, y0, x0, rows.n_found[:, o], F, R, P, P)
+        per_octave.append(p.view(F, caps[o], *p.shape[1:]))
+    return torch.cat(per_octave, 1).flatten(0, 1)
 
 
 def collect_candidates(dog: torch.Tensor, cfg: SiftConfig,
                        capacity: int, plain: bool = False,
                        windows: bool = False,
                        mask: torch.Tensor | None = None) -> CandidateSet:
-    """Mask (K1) + compaction for one octave's f32[D, H, W] DoG stack;
-    ``mask`` is the octave's ready bool[Z, H, W] mask where the caller
-    made all octaves' in one launch (:func:`candidate_masks`).
+    """Mask (K1) + compaction (the compaction kernel) for one octave's
+    f32[D, H, W] DoG stack; ``mask`` is the octave's ready bool[Z, H, W]
+    mask where the caller made all octaves' in one launch
+    (:func:`candidate_masks`). The rows are i32.
     With ``windows`` also every candidate's [D, 11, 11] window (K6, or
     its plain version with ``plain``), centred on the candidate with
     edge replication, as popsift_tpu.ops.extrema.collect_candidates
     cuts them (:371-388); the count stays on the device."""
-    _, H, W = dog.shape
     if mask is None:
         mask = _candidate_mask(dog, cfg, plain)
-    idx, n_found, n_dropped = _compact_mask(
-        mask.reshape(-1), capacity, block_k=cfg.compact_block_k)
+    rows = compact_octaves([mask[None]], cfg, (capacity,), 1, plain)
+    n_found = rows.n_found[0, 0]
     valid = torch.arange(capacity, device=dog.device) < n_found
-    x0, y0 = idx % W, (idx % (H * W)) // W
     patches = None
     if windows:
         fn = extract_windows_torch if plain else extract_windows
-        patches = fn(dog, y0, x0, n_found, WINDOW_RADIUS, WINDOW_SIDE,
-                     WINDOW_SIDE)
-    return CandidateSet(x0=x0, y0=y0, z0=idx // (H * W) + 1, valid=valid,
-                        n_found=n_found, n_dropped=n_dropped,
+        patches = fn(dog, rows.y0, rows.x0, n_found, WINDOW_RADIUS,
+                     WINDOW_SIDE, WINDOW_SIDE)
+    return CandidateSet(x0=rows.x0, y0=rows.y0, z0=rows.z0, valid=valid,
+                        n_found=n_found, n_dropped=rows.n_dropped[0, 0],
                         patches=patches)
 
 
@@ -235,7 +240,7 @@ def collect_candidates_batched(dog: torch.Tensor, F: int, cfg: SiftConfig,
                                ) -> CandidateSet:
     """Mask (K1's batched entry, or its plain version with ``plain``, or
     the ready bool[F, Z, H, W] ``mask`` of :func:`candidate_masks`) and
-    per-frame compaction of one octave for F frames, port of
+    one compaction of one octave for F frames, port of
     popsift_tpu.ops.extrema.collect_candidates_batched (:394-448) on
     dense stacks: ``dog`` is f32[F*D, H, W], frame f's D =
     total_levels-1 layers at [f*D, f*D + D). Row arrays are [F*capacity]
@@ -243,7 +248,7 @@ def collect_candidates_batched(dog: torch.Tensor, F: int, cfg: SiftConfig,
     counts are [F]. With ``windows`` also the [F*capacity, D, 11, 11]
     windows (K6's batched entry), frame f's cut from its own D layers
     only (JAX's per-job layer base ``zbase``, :437-445)."""
-    FD, H, W = dog.shape
+    FD = dog.shape[0]
     if FD != F * (cfg.total_levels - 1):
         raise ValueError(f"collect_candidates_batched: {FD} layers for {F} "
                          f"frames of {cfg.total_levels - 1}")
@@ -252,24 +257,21 @@ def collect_candidates_batched(dog: torch.Tensor, F: int, cfg: SiftConfig,
         mask_fn = candidate_mask_batched_torch if plain \
             else candidate_mask_batched
         mask = _opencv_border(mask_fn(dog, F, thr1).view(torch.bool), cfg)
-    # per-frame compaction (JAX vmaps _compact_mask, :518-521)
-    comp = [_compact_mask(mask[f].reshape(-1), capacity,
-                          block_k=cfg.compact_block_k) for f in range(F)]
-    idx = torch.stack([c[0] for c in comp]).reshape(-1)
-    n_found = torch.stack([c[1] for c in comp])
-    x0, y0 = idx % W, (idx % (H * W)) // W
+    # one compaction of the F frames' masks (JAX vmaps _compact_mask,
+    # :518-521)
+    rows = compact_octaves([mask], cfg, (capacity,), F, plain)
+    n_found = rows.n_found[:, 0]
     patches = None
     if windows:
         fn = extract_windows_batched_torch if plain \
             else extract_windows_batched
-        patches = fn(dog, y0, x0, n_found, F, WINDOW_RADIUS, WINDOW_SIDE,
-                     WINDOW_SIDE)
+        patches = fn(dog, rows.y0, rows.x0, n_found, F, WINDOW_RADIUS,
+                     WINDOW_SIDE, WINDOW_SIDE)
     return CandidateSet(
-        x0=x0, y0=y0, z0=idx // (H * W) + 1,
+        x0=rows.x0, y0=rows.y0, z0=rows.z0,
         valid=torch.arange(capacity, device=dog.device)[None, :]
         < n_found[:, None],
-        n_found=n_found, n_dropped=torch.stack([c[2] for c in comp]),
-        patches=patches)
+        n_found=n_found, n_dropped=rows.n_dropped[:, 0], patches=patches)
 
 
 def collect_refined_batched(dog: torch.Tensor, F: int, cfg: SiftConfig,
@@ -348,7 +350,9 @@ def finalize_refined(state: torch.Tensor, cand_valid: torch.Tensor,
     """Accept tests over refined candidates (s_extrema.cu:455-493), port
     of popsift_tpu.ops.extrema.finalize_refined (:542-601): excessive
     movement, bounds, contrast, curvature sign and edge ratio, plus sigma
-    and grid cell. ``oct_w``/``oct_h`` are ints or per-row tensors."""
+    and grid cell. ``oct_w``/``oct_h`` are ints or per-row tensors, the
+    counts ints or tensors; given tensors on ``state``'s device (as the
+    extraction paths give them) nothing is copied from the host."""
     (nx, nyv, nzv, dx, dy, dz, v,
      Dx, Dy, Ds, DDx, DDy, DXy) = (state[:, i] for i in range(13))
     dev = state.device

@@ -11,13 +11,17 @@ K3's launches over all octaves of a frame or batch; ``extrema_mask``,
 ``extrema_mask_batched`` and ``orientation_hist`` the same kernels on one
 octave.
 ``descriptor_loop_octaves`` is K4's launch over all octaves of a frame or
-batch, ``descriptor_loop`` the same kernel on one octave. The bucketed
+batch, ``descriptor_loop`` the same kernel on one octave.
+``compact`` is the compaction of all octaves' masks (two launches a call,
+counted once) and ``refine_octaves`` K2's launch over the rows of all
+octaves and frames; ``refine`` and ``refine_batched`` the same kernel on
+one octave, off every extraction path. The bucketed
 entries of K3 and K4 add no kernel of their own: each counts the
 calls in which it launched the kernel beneath it.
 """
 
-from . import (blur_chain, blur_dog, desc, extrema_mask, orient, refine,
-               window)
+from . import (blur_chain, blur_dog, compact, desc, extrema_mask, orient,
+               refine, window)
 
 # entry name -> (module, counter attribute, file:line of the TPU kernel)
 ENTRIES = {
@@ -27,6 +31,9 @@ ENTRIES = {
     extrema_mask.NAME_OCTAVES: (extrema_mask, "launches_octaves",
                                 extrema_mask.REPLACES_OCTAVES),
     refine.NAME: (refine, "launches", refine.REPLACES),
+    refine.NAME_OCTAVES: (refine, "launches_octaves",
+                          refine.REPLACES_OCTAVES),
+    compact.NAME: (compact, "launches", compact.REPLACES),
     orient.NAME: (orient, "launches", orient.REPLACES),
     orient.NAME_OCTAVES: (orient, "launches_octaves",
                           orient.REPLACES_OCTAVES),

@@ -75,6 +75,13 @@ _SIGNATURES = {
     # stream
     "ps_refine_batched": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
                           _I, _VP, _VP),
+    # table (host i64[n_oct, 5]), n_oct, F, x0, y0, z0, n_found, maxlevel,
+    # vlfeat, out, stream
+    "ps_refine_octaves": (_VP, _I, _I, _VP, _VP, _VP, _VP, _I, _I, _VP, _VP),
+    # table (host i64[n_oct, 16]), n_oct, F, rows, scratch, x0, y0, z0,
+    # n_found, n_dropped, stream
+    "ps_compact_octaves": (_VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP,
+                           _VP),
     # table (host i64[n_oct, 5]), n_oct, n_rows, frame_rows, x, y, sigma,
     # level, valid, out, stream
     "ps_orientation_hist_octaves": (_VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP,

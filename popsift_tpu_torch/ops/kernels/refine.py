@@ -15,10 +15,20 @@ The frame-batched entry (:func:`refine_state_batched`, replacing
 ``refine_windows_pallas_batched``) refines F frames' candidates, F*cap
 rows frame-major, against their stacks laid back to back, in one launch
 with its own launch counter; each row reads only its own frame's layers.
+
+:func:`refine_state_octaves` is the entry of the extraction paths: ONE
+launch over the candidate rows of all octaves of F frames, laid out as
+the compaction kernel writes them (ops/kernels/compact.py; frame-major,
+frame f's octave o at rows f * Ktot + offs[o] .. + cap[o]), each row's
+live count read from ``n_found[f, o]`` on the device. The per-octave and
+batched entries stay beside it, off every extraction path.
 """
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
 from . import build
@@ -28,10 +38,14 @@ SOURCE = "popsift_tpu_torch/csrc/refine.cu"
 REPLACES = "popsift_tpu/ops/pallas/refine.py:350"
 NAME_BATCHED = "refine_batched"
 REPLACES_BATCHED = "popsift_tpu/ops/pallas/refine.py:380"
+NAME_OCTAVES = "refine_octaves"
+REPLACES_OCTAVES = REPLACES
+MAX_OCTAVES = 16      # MAX_OCT of csrc/refine.cu
 MAX_ITERATIONS = 5    # s_extrema.cu:363
 NOUT = 16
 launches = 0
 launches_batched = 0
+launches_octaves = 0
 
 
 def solve3(a00, a01, a02, a11, a12, a22, b0, b1, b2):
@@ -236,4 +250,73 @@ def refine_state_batched(dog: torch.Tensor, x0: torch.Tensor,
         out.data_ptr(), build.stream_of(dog))
     build.check(rc, NAME_BATCHED)
     launches_batched += 1
+    return out
+
+
+def _check_octaves(dogs, x0, caps, n_found, F: int) -> None:
+    if (not 1 <= len(dogs) <= MAX_OCTAVES or len(caps) != len(dogs)
+            or F < 1 or x0.shape[0] != F * sum(caps)
+            or n_found.shape != (F, len(dogs))):
+        raise ValueError(f"refine_state_octaves expects 1 to {MAX_OCTAVES} "
+                         f"octaves, F * sum(caps) rows and n_found[F, "
+                         f"n_oct]")
+    for d in dogs:
+        if d.dim() != 3 or d.dtype != torch.float32 or d.shape[0] % F:
+            raise ValueError("refine_state_octaves expects f32[F*D, H, W] "
+                             "stacks")
+
+
+def refine_state_octaves_torch(dogs, x0: torch.Tensor, y0: torch.Tensor,
+                               z0: torch.Tensor, n_found: torch.Tensor,
+                               caps, F: int = 1, *, maxlevel: int,
+                               vlfeat: bool) -> torch.Tensor:
+    """Plain version of :func:`refine_state_octaves`:
+    :func:`refine_state_torch` on each frame's octave rows and its own D
+    layers, in the kernel's row order."""
+    _check_octaves(dogs, x0, caps, n_found, F)
+    nf = n_found.tolist()
+    offs = np.concatenate([[0], np.cumsum(caps)]).astype(int)
+    out = []
+    for f in range(F):
+        for o, dog in enumerate(dogs):
+            D = dog.shape[0] // F
+            rows = slice(f * int(offs[-1]) + int(offs[o]),
+                         f * int(offs[-1]) + int(offs[o + 1]))
+            out.append(refine_state_torch(
+                dog[f * D:(f + 1) * D], x0[rows], y0[rows], z0[rows],
+                int(nf[f][o]), maxlevel=maxlevel, vlfeat=vlfeat))
+    return torch.cat(out)
+
+
+def refine_state_octaves(dogs, x0: torch.Tensor, y0: torch.Tensor,
+                         z0: torch.Tensor, n_found: torch.Tensor, caps,
+                         F: int = 1, *, maxlevel: int,
+                         vlfeat: bool) -> torch.Tensor:
+    """f32[F*Ktot, 16] refinement state of the candidate rows of all
+    octaves of F frames (``dogs``: per octave the frames' stacks back to
+    back, f32[F*D_o, H_o, W_o]; ``x0``, ``y0``, ``z0`` i32[F*Ktot]
+    frame-major with frame-local z; octave o's rows below ``n_found[f,
+    o]`` live, the rest zeros). Plain version on the CPU, ONE launch of
+    kernel K2 on a CUDA device, with no count read back."""
+    global launches_octaves
+    _check_octaves(dogs, x0, caps, n_found, F)
+    if x0.device.type == "cpu":
+        return refine_state_octaves_torch(dogs, x0, y0, z0, n_found, caps,
+                                          F, maxlevel=maxlevel, vlfeat=vlfeat)
+    x0, y0, z0 = (t.to(torch.int32).contiguous() for t in (x0, y0, z0))
+    n_found = n_found.to(torch.int64).contiguous()
+    build.require_cuda(NAME_OCTAVES, *dogs, x0, y0, z0, n_found)
+    out = torch.empty((x0.shape[0], NOUT), dtype=torch.float32,
+                      device=x0.device)
+    ends = np.cumsum(caps)
+    table = np.asarray([[d.data_ptr(), d.shape[0] // F, d.shape[1],
+                         d.shape[2], e] for d, e in zip(dogs, ends)],
+                       np.int64)
+    lib = build.load_library()
+    rc = lib.ps_refine_octaves(
+        table.ctypes.data_as(ctypes.c_void_p), len(dogs), F, x0.data_ptr(),
+        y0.data_ptr(), z0.data_ptr(), n_found.data_ptr(), maxlevel,
+        int(vlfeat), out.data_ptr(), build.stream_of(x0))
+    build.check(rc, NAME_OCTAVES)
+    launches_octaves += 1
     return out

@@ -79,6 +79,19 @@ def smooth_histograms(hist: torch.Tensor, smoothing: str = "vlfeat"
     return hist
 
 
+def _top_bins(vals: torch.Tensor, k: int):
+    """(values, bins) of the ``k`` largest entries of each row, largest
+    first, ties toward the lower bin, by ``k`` rounds of ``max``."""
+    top_val, top_idx = [], []
+    for r in range(k):
+        v, i = vals.max(1)
+        top_val.append(v)
+        top_idx.append(i)
+        if r + 1 < k:
+            vals = vals.scatter(1, i[:, None], -math.inf)
+    return torch.stack(top_val, 1), torch.stack(top_idx, 1)
+
+
 def orientations_from_histograms(hist: torch.Tensor, valid: torch.Tensor,
                                  smoothing: str = "vlfeat"
                                  ) -> OctaveOrientations:
@@ -87,8 +100,12 @@ def orientations_from_histograms(hist: torch.Tensor, valid: torch.Tensor,
     .orientations_from_histograms (:192-231).
 
     ``lax.top_k`` breaks ties toward the lower index and ``torch.topk``
-    promises no order, so the top four come from a stable descending
-    sort: the order of orientations decides the order of descriptor
+    promises no order, so the top four come from four rounds of
+    ``max`` (which returns the first maximal bin), each round's bin then
+    excluded: the order of a stable descending sort wherever the value is
+    finite, without sorting all 36 bins of every row. Only finite peaks
+    are accepted, so the order among ``-inf`` bins never reaches an
+    output. The order of orientations decides the order of descriptor
     jobs."""
     hist = smooth_histograms(hist, smoothing)
     prev = torch.roll(hist, 1, 1)
@@ -106,9 +123,7 @@ def orientations_from_histograms(hist: torch.Tensor, valid: torch.Tensor,
     yval = torch.where(ok, -(num * num) / (4.0 * denB) + prev,
                        torch.full_like(hist, -math.inf))
 
-    top_val, top_idx = torch.sort(yval, dim=1, descending=True, stable=True)
-    top_val = top_val[:, :ORIENTATION_MAX_COUNT]
-    top_idx = top_idx[:, :ORIENTATION_MAX_COUNT]
+    top_val, top_idx = _top_bins(yval, ORIENTATION_MAX_COUNT)
     best = top_val[:, :1]
     accept = (top_val >= 0.8 * best) & torch.isfinite(top_val) \
         & valid[:, None]

@@ -1,46 +1,40 @@
 """End-to-end SIFT extraction in PyTorch.
 
 Port of :mod:`popsift_tpu.pipeline` -- the dense-stack (non-canvas)
-branch of ``extract`` (pipeline.py:237-406): the pyramid as dense
-per-octave stacks, the candidate masks of all octaves in one launch
-(K1), per octave the compaction and the refinement (K2), ONE batched
-accept test over all octaves, the orientation histograms of all octaves
-in one launch (K3), one orientation tail, one segmented job build, the
-descriptors of all octaves in one launch (K4),
-then normalisation and the output tail (octave scaling, descriptor ->
-keypoint map).
+branch of ``extract`` (pipeline.py:237-406) and of ``extract_batch``
+(pipeline.py:409-753): the pyramid as dense per-octave stacks, F frames'
+stacks back to back on the layer axis ([F*L, H, W] and [F*(L-1), H, W]),
+then for all octaves and frames at once: the candidate masks (K1), the
+compaction (the compaction kernel), the refinement (K2), ONE accept test,
+the orientation histograms (K3), one orientation tail, one segmented job
+build, the descriptors (K4), normalisation and the output tail (octave
+scaling, descriptor -> keypoint map). K3 and K4 address frame f's level
+l as layer f*L + l.
 
-Counts that size a kernel launch (candidates per octave) are read back
-to the host between stages; the descriptor kernel reads the jobs' valid
-flags on the device. Everything else stays on the device.
-
-:func:`extract_batch` is the frame-batched form (pipeline.py:409-753 on
-dense stacks): F frames' pyramids share one K5 launch per level, each
-octave's stacks hold the frames back to back on the layer axis
-([F*L, H, W] and [F*(L-1), H, W]), K2 runs once per octave for all
-frames, K1, K3 and K4 once for the whole batch, K3 and K4 addressing
-frame f's level l as layer f*L + l. Every
-output gains a leading [F] axis. ``extract_batch`` of one frame equals
-``extract`` but runs more host glue (its per-frame compactions and
-frame-major reshapes), so the single-frame path keeps its own stages
-(PERF.md §6).
+No count comes back to the host: the compaction writes the candidate
+counts on the device and every later stage reads them there, and the
+per-plan constants (row dims, octave ids, scales, offsets) are made once
+per (plan, frames, device) and kept on the plan. On a CUDA device an
+extraction of an uploaded frame queues its work and returns without
+waiting for the card. :func:`extract` is the one-frame form of
+:func:`extract_batch`: both run the same stages, and every output of the
+batch gains a leading [F] axis.
 :func:`calibrate_plan` sizes per-octave capacities from a detect-only
 probe (pipeline.py:787-831).
 
 Two keywords choose between the JAX package's routes. ``detect="fused"``
 (the default; JAX's ``POPSIFT_TPU_FUSED_REFINE=1``) refines with K2
-straight from the DoG stack, once per octave. ``detect="windows"`` is
-the JAX package's default route (pipeline.py:233-276): per octave the
-collection also copies each candidate's DoG window (K6), then ONE
-``refine_patches`` runs over the merged windows of all octaves.
-``front="level"`` (the default) blurs with K5 once per level,
-``front="chain"`` with K7 once per group of levels (JAX's
-``use_pallas="chain"``). Both routes give the same features.
+straight from the DoG stacks. ``detect="windows"`` is the JAX package's
+default route (pipeline.py:233-276): per octave K6 also copies each
+candidate's DoG window, then ONE ``refine_patches`` runs over the merged
+windows of all octaves. ``front="level"`` (the default) blurs with K5
+once per level, ``front="chain"`` with K7 once per group of levels
+(JAX's ``use_pallas="chain"``). Both routes give the same features.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import NamedTuple
 
 import numpy as np
@@ -85,6 +79,9 @@ class ExtractPlan:
     pyramid: PyramidPlan
     ext_caps: tuple      # per-octave extrema capacity
     job_caps: tuple      # per-octave descriptor-job capacity
+    # per (frames, device): the plan's constant tensors (_constants)
+    _constants: dict = field(default_factory=dict, init=False,
+                             compare=False, repr=False)
 
 
 def build_extract_plan(config: SiftConfig, height: int, width: int,
@@ -120,6 +117,60 @@ def _check_supported(cfg: SiftConfig, detect: str = "fused") -> None:
         raise NotImplementedError(f"desc_mode {cfg.desc_mode!r} (ROADMAP A9)")
 
 
+class _Constants(NamedTuple):
+    """Tensors of a plan for F frames that depend on nothing else."""
+
+    w_row: torch.Tensor       # i64[F*Ktot] width of each row's octave
+    h_row: torch.Tensor       # i64[F*Ktot]
+    local_row: torch.Tensor   # i64[F*Ktot] row within its octave
+    segment: torch.Tensor     # i64[F*Ktot] f * n_oct + o
+    octave: torch.Tensor      # i64[F*Ktot]
+    scale: torch.Tensor       # f32[F*Ktot] 2^(o - upscale)
+    job_order: torch.Tensor | None   # job rows octave-major -> frame-major
+    job_kp_offset: torch.Tensor      # i64[F*Jtot] first row of the octave
+
+
+def _constants(plan: ExtractPlan, F: int, dev: torch.device) -> _Constants:
+    """The plan's constant tensors for F frames on ``dev``, made once and
+    kept on the plan (a host-to-device copy waits for the stream)."""
+    key = (F, dev)
+    if key in plan._constants:
+        return plan._constants[key]
+    caps, jcaps = np.asarray(plan.ext_caps), np.asarray(plan.job_caps)
+    n_oct = len(caps)
+    dims = np.asarray(plan.pyramid.dims, np.int64)
+    octave = np.repeat(np.arange(n_oct), caps)
+    local = np.arange(caps.sum()) - np.repeat(np.cumsum(caps) - caps, caps)
+    scale = np.exp2(octave.astype(np.float32)
+                    - np.float32(plan.config.upscale_factor)).astype(
+                        np.float32)
+    # K4 runs on job rows octave-major (octave o's F segments back to
+    # back); the outputs are frame-major
+    job_first = np.cumsum(jcaps) - jcaps
+    order = np.concatenate([
+        F * job_first[o] + f * jcaps[o] + np.arange(jcaps[o])
+        for f in range(F) for o in range(n_oct)])
+    t = lambda a: torch.as_tensor(np.tile(a, F), device=dev)
+    c = _Constants(
+        w_row=t(dims[octave, 1]), h_row=t(dims[octave, 0]),
+        local_row=t(local),
+        segment=torch.as_tensor(np.repeat(np.arange(F), caps.sum()) * n_oct
+                                + np.tile(octave, F), device=dev),
+        octave=t(octave), scale=t(scale),
+        job_order=None if F == 1 else torch.as_tensor(order, device=dev),
+        job_kp_offset=t(np.repeat(np.cumsum(caps) - caps, jcaps)))
+    plan._constants[key] = c
+    return c
+
+
+def _frames_tensor(imgs, dev: torch.device) -> torch.Tensor:
+    """The frames on ``dev``: a tensor is moved (no copy if it lies
+    there already), anything else goes through numpy."""
+    if isinstance(imgs, torch.Tensor):
+        return imgs.to(dev)
+    return torch.as_tensor(np.asarray(imgs)).to(dev)
+
+
 def extract(img, plan: ExtractPlan, device, *, plain: bool = False,
             detect: str = "fused", front: str = "level") -> SiftFeatures:
     """Run the full pipeline on one [H, W] uint8 (or [0, 1] float32)
@@ -127,99 +178,17 @@ def extract(img, plan: ExtractPlan, device, *, plain: bool = False,
     and ``front`` choose the detection route and the pyramid front (see
     the module docstring).
 
-    On a CUDA device every kernel stage runs its CUDA kernel. ``plain``
-    runs every stage's plain PyTorch version instead, on the same device:
-    the baseline the kernels are timed against. It is never chosen on
-    its own."""
-    cfg = plan.config
-    _check_supported(cfg, detect)
-    dev = resolve_device(device)
-    img = torch.as_tensor(np.asarray(img)).to(dev)
+    On a CUDA device every kernel stage runs its CUDA kernel, and nothing
+    waits for the card after the image is on it. ``plain`` runs every
+    stage's plain PyTorch version instead, on the same device: the
+    baseline the kernels are timed against. It is never chosen on its
+    own."""
+    img = _frames_tensor(img, resolve_device(device))
     if tuple(img.shape) != (plan.height, plan.width):
         raise ValueError(f"image {tuple(img.shape)} does not match the plan "
                          f"({plan.height}, {plan.width})")
-    caps = plan.ext_caps
-    dims = plan.pyramid.dims
-    offs = np.concatenate([[0], np.cumsum(caps)]).astype(int)
-
-    blurs, dogs = build_pyramid(img, plan.pyramid, plain, front)
-
-    # detection: one mask launch for all octaves, compaction per octave,
-    # the refinement per octave (fused: K2 on the stack) or once over all
-    # octaves' windows, one batched accept test over all octaves (each row
-    # carries its octave's dims)
-    octv_row = np.concatenate(
-        [np.full(caps[o], o, np.int64) for o in range(len(caps))])
-    w_row = torch.as_tensor(np.concatenate(
-        [np.full(caps[o], ow, np.int64) for o, (_, ow) in enumerate(dims)]),
-        device=dev)
-    h_row = torch.as_tensor(np.concatenate(
-        [np.full(caps[o], oh, np.int64) for o, (oh, _) in enumerate(dims)]),
-        device=dev)
-    masks = _ext.candidate_masks(dogs, cfg, plain=plain)
-    cands = [_ext.collect_candidates(dog, cfg, caps[o], plain,
-                                     windows=detect == "windows",
-                                     mask=masks[o][0])
-             for o, dog in enumerate(dogs)]
-    if detect == "windows":
-        n_found = torch.stack([c.n_found for c in cands]).tolist()
-        state = _ext.refine_patches(
-            torch.cat([c.patches for c in cands]),
-            torch.cat([c.x0 for c in cands]), torch.cat([c.y0 for c in cands]),
-            torch.cat([c.z0 for c in cands]),
-            torch.cat([c.valid for c in cands]), cfg, w_row, h_row)
-    else:
-        n_found = [int(c.n_found) for c in cands]
-        state = torch.cat([_ext.refine_candidates(dogs[o], c, cfg, plain)
-                           for o, c in enumerate(cands)])
-    g = _ext.finalize_refined(
-        state, torch.cat([c.valid for c in cands]), cfg, w_row, h_row,
-        sum(n_found), torch.stack([c.n_dropped for c in cands]).sum())
-
-    # orientation: one K3 launch over the rows of all octaves (the kernel
-    # reads ``valid`` and zeroes the other rows), one batched peak tail
-    hist = _ori.orientation_histograms_octaves(blurs, g, cfg, offs[1:],
-                                               plain=plain)
-    oris = _ori.orientations_from_histograms(hist, g.valid,
-                                             smoothing=cfg.ori_smoothing)
-
-    # descriptors: one segmented job build, one K4 launch over the rows of
-    # all octaves (the kernel reads ``valid``; no count comes back)
-    segs = tuple((int(offs[o]), caps[o], plan.job_caps[o])
-                 for o in range(len(caps)))
-    jobs_all, _ = _desc.make_descriptor_jobs_segmented(
-        g.x, g.y, g.sigma, g.level, oris.ori, oris.ori_valid, segs)
-    jobs_off = np.concatenate([[0], np.cumsum(plan.job_caps)]).astype(int)
-    raw = _desc.compute_descriptors_octaves(blurs, jobs_all, jobs_off[1:],
-                                            cfg, plain)
-    desc_kp = jobs_all.kp_index + torch.as_tensor(
-        np.repeat(offs[:-1], plan.job_caps), device=dev)
-
-    desc_valid = jobs_all.valid
-    desc = _desc.normalize_descriptors(raw, cfg)
-    desc = torch.where(desc_valid[:, None], desc, torch.zeros_like(desc))
-
-    scale_row = torch.as_tensor(
-        np.exp2(octv_row.astype(np.float32)
-                - np.float32(cfg.upscale_factor)).astype(np.float32),
-        device=dev)
-    return SiftFeatures(
-        x=g.x * scale_row,
-        y=g.y * scale_row,
-        sigma=g.sigma * scale_row,
-        octave=torch.as_tensor(octv_row, device=dev),
-        num_ori=oris.num_ori,
-        valid=g.valid,
-        ori=oris.ori,
-        ori_valid=oris.ori_valid,
-        desc=desc,
-        desc_kp=desc_kp,
-        desc_valid=desc_valid,
-        n_keypoints=g.valid.sum(),
-        n_descriptors=desc_valid.sum(),
-        octave_candidates=torch.stack([c.n_found for c in cands]),
-        octave_dropped=torch.stack([c.n_dropped for c in cands]),
-    )
+    return frame_features(extract_batch(img[None], plan, device, plain=plain,
+                                        detect=detect, front=front), 0)
 
 
 def extract_batch(imgs, plan: ExtractPlan, device, *, plain: bool = False,
@@ -233,62 +202,40 @@ def extract_batch(imgs, plan: ExtractPlan, device, *, plain: bool = False,
     cfg = plan.config
     _check_supported(cfg, detect)
     dev = resolve_device(device)
-    imgs = torch.as_tensor(np.asarray(imgs)).to(dev)
+    imgs = _frames_tensor(imgs, dev)
     if imgs.dim() != 3 or tuple(imgs.shape[1:]) != (plan.height, plan.width):
         raise ValueError(f"frames {tuple(imgs.shape)} do not match the plan "
                          f"(F, {plan.height}, {plan.width})")
     F = imgs.shape[0]
     L = cfg.total_levels
     caps = plan.ext_caps
-    dims = plan.pyramid.dims
     n_oct = len(caps)
     offs = np.concatenate([[0], np.cumsum(caps)]).astype(int)
     Ktot = int(offs[-1])
+    const = _constants(plan, F, dev)
 
     # frames stacked on the layer axis: [F, L, H, W] -> [F*L, H, W]
     blurs, dogs = build_pyramid_frames(imgs, plan.pyramid, plain, front)
     blurs = [b.view(F * L, *b.shape[2:]) for b in blurs]
     dogs = [d.view(F * (L - 1), *d.shape[2:]) for d in dogs]
 
-    # detection: one mask launch for all octaves and frames, the
-    # refinement once per octave (fused: K2's batched entry) or once over
-    # all frames' and octaves' windows, one accept test over everything.
-    # Rows are frame-major: frame f's octaves back to back.
-    octv_row = np.concatenate(
-        [np.full(caps[o], o, np.int64) for o in range(n_oct)])
-    w_row = torch.as_tensor(np.tile(np.concatenate(
-        [np.full(caps[o], ow, np.int64) for o, (_, ow) in enumerate(dims)]),
-        F), device=dev)
-    h_row = torch.as_tensor(np.tile(np.concatenate(
-        [np.full(caps[o], oh, np.int64) for o, (oh, _) in enumerate(dims)]),
-        F), device=dev)
-
-    def frame_major(per_octave):
-        """[F*cap_o, ...] per octave -> [F*Ktot, ...]."""
-        return torch.cat([a.view(F, caps[o], *a.shape[1:])
-                          for o, a in enumerate(per_octave)], 1).flatten(0, 1)
-
+    # detection: one mask launch, one compaction and (fused) one
+    # refinement launch for all octaves and frames; or per octave the
+    # windows and one refinement over all octaves' windows; then one
+    # accept test over everything. Rows are frame-major: frame f's
+    # octaves back to back.
     masks = _ext.candidate_masks(dogs, cfg, F, plain)
+    rows = _ext.compact_octaves(masks, cfg, caps, F, plain)
+    valid_rows = const.local_row < rows.n_found.view(-1)[const.segment]
     if detect == "windows":
-        cands = [_ext.collect_candidates_batched(
-            dogs[o], F, cfg, caps[o], plain, windows=True, mask=masks[o])
-            for o in range(n_oct)]
-        valid_rows = torch.cat([c.valid for c in cands], 1).reshape(-1)
-        vals = _ext.refine_patches(
-            frame_major([c.patches for c in cands]),
-            frame_major([c.x0 for c in cands]),
-            frame_major([c.y0 for c in cands]),
-            frame_major([c.z0 for c in cands]), valid_rows, cfg, w_row, h_row)
+        patches = _ext.window_patches(dogs, rows, caps, F, plain)
+        state = _ext.refine_patches(patches, rows.x0, rows.y0, rows.z0,
+                                    valid_rows, cfg, const.w_row, const.h_row)
     else:
-        cands = [_ext.collect_refined_batched(dogs[o], F, cfg, caps[o], plain,
-                                              mask=masks[o])
-                 for o in range(n_oct)]
-        valid_rows = torch.cat([c.valid for c in cands], 1).reshape(-1)
-        vals = frame_major([c.vals for c in cands])
-    n_found = torch.stack([c.n_found for c in cands]).tolist()  # [o][f]
-    g = _ext.finalize_refined(
-        vals, valid_rows, cfg, w_row, h_row,
-        int(np.sum(n_found)), torch.stack([c.n_dropped for c in cands]).sum())
+        state = _ext.refine_octaves(dogs, rows, cfg, caps, F, plain)
+    g = _ext.finalize_refined(state, valid_rows, cfg, const.w_row,
+                              const.h_row, rows.n_found.sum(),
+                              rows.n_dropped.sum())
 
     # orientation: one K3 launch over the frame-major rows of all frames
     # and octaves; the kernel takes frame f's level l as layer f*L + l of
@@ -300,54 +247,44 @@ def extract_batch(imgs, plan: ExtractPlan, device, *, plain: bool = False,
 
     # descriptors: one job build over all (octave, frame) segments, then
     # one K4 launch over every row (octave-major: octave o's F segments
-    # end at row F * jobs_off[o + 1])
+    # end at row F * jobs_off[o + 1]), then the rows put frame-major
     segs, lev_offs = [], []
     for o in range(n_oct):
         for f in range(F):
             segs.append((f * Ktot + int(offs[o]), caps[o], plan.job_caps[o]))
             lev_offs.append(f * L)
-    jobs_all, _ = _desc.make_descriptor_jobs_segmented(
+    jobs, _ = _desc.make_descriptor_jobs_segmented(
         g.x, g.y, g.sigma, g.level, oris.ori, oris.ori_valid, tuple(segs),
-        level_offsets=tuple(lev_offs))
+        level_offsets=tuple(lev_offs) if F > 1 else None)
     jobs_off = np.concatenate([[0], np.cumsum(plan.job_caps)]).astype(int)
     Jtot = int(jobs_off[-1])
-    raw_all = _desc.compute_descriptors_octaves(
-        blurs, jobs_all, jobs_off[1:] * F, cfg, plain)
-    raw, job_kps, job_valids = [], [], []
-    for o in range(n_oct):
-        jcap = plan.job_caps[o]
-        jsl = slice(int(jobs_off[o]) * F, int(jobs_off[o]) * F + F * jcap)
-        raw.append(raw_all[jsl].view(F, jcap, 128))
-        job_kps.append(jobs_all.kp_index[jsl].view(F, jcap) + int(offs[o]))
-        job_valids.append(jobs_all.valid[jsl].view(F, jcap))
+    raw = _desc.compute_descriptors_octaves(blurs, jobs, jobs_off[1:] * F,
+                                            cfg, plain)
+    kp, desc_valid = jobs.kp_index, jobs.valid
+    if const.job_order is not None:
+        raw, kp, desc_valid = (a[const.job_order]
+                               for a in (raw, kp, desc_valid))
+    desc = _desc.normalize_descriptors(raw, cfg)
+    desc = torch.where(desc_valid[:, None], desc, torch.zeros_like(desc))
 
-    desc_valid = torch.cat(job_valids, 1)                  # [F, Jtot]
-    desc = _desc.normalize_descriptors(
-        torch.cat(raw, 1).reshape(F * Jtot, 128), cfg)
-    desc = torch.where(desc_valid.reshape(-1)[:, None], desc,
-                       torch.zeros_like(desc))
-
-    scale_row = torch.as_tensor(np.tile(
-        np.exp2(octv_row.astype(np.float32)
-                - np.float32(cfg.upscale_factor)).astype(np.float32), F),
-        device=dev)
     valid = g.valid.view(F, Ktot)
+    desc_valid = desc_valid.view(F, Jtot)
     return SiftFeatures(
-        x=(g.x * scale_row).view(F, Ktot),
-        y=(g.y * scale_row).view(F, Ktot),
-        sigma=(g.sigma * scale_row).view(F, Ktot),
-        octave=torch.as_tensor(np.tile(octv_row, (F, 1)), device=dev),
+        x=(g.x * const.scale).view(F, Ktot),
+        y=(g.y * const.scale).view(F, Ktot),
+        sigma=(g.sigma * const.scale).view(F, Ktot),
+        octave=const.octave.view(F, Ktot).clone(),
         num_ori=oris.num_ori.view(F, Ktot),
         valid=valid,
         ori=oris.ori.view(F, Ktot, -1),
         ori_valid=oris.ori_valid.view(F, Ktot, -1),
         desc=desc.view(F, Jtot, 128),
-        desc_kp=torch.cat(job_kps, 1),
+        desc_kp=(kp + const.job_kp_offset).view(F, Jtot),
         desc_valid=desc_valid,
         n_keypoints=valid.sum(1),
         n_descriptors=desc_valid.sum(1),
-        octave_candidates=torch.stack([c.n_found for c in cands], 1),
-        octave_dropped=torch.stack([c.n_dropped for c in cands], 1),
+        octave_candidates=rows.n_found,
+        octave_dropped=rows.n_dropped,
     )
 
 
@@ -380,7 +317,7 @@ def saturation_report(feats: SiftFeatures, plan: ExtractPlan) -> list:
 def make_probe_fn(plan: ExtractPlan, device, front: str = "level"):
     """Detect-only probe (pipeline.py:787-804): pyramid and the dense
     candidate collection (one mask launch of K1 over the octaves' dense
-    stacks, compaction per octave), no refinement or later stage, so of the two
+    stacks, one compaction), no refinement or later stage, so of the two
     route keywords only ``front`` applies. The returned function maps
     one image to its per-octave candidate counts, i64 numpy
     [n_octaves]."""
@@ -388,13 +325,11 @@ def make_probe_fn(plan: ExtractPlan, device, front: str = "level"):
     dev = resolve_device(device)
 
     def probe(img) -> np.ndarray:
-        img = torch.as_tensor(np.asarray(img)).to(dev)
-        _, dogs = build_pyramid(img, plan.pyramid, front=front)
+        _, dogs = build_pyramid(_frames_tensor(img, dev), plan.pyramid,
+                                front=front)
         masks = _ext.candidate_masks(dogs, cfg)
-        cands = [_ext.collect_candidates(dog, cfg, plan.ext_caps[o],
-                                         mask=masks[o][0])
-                 for o, dog in enumerate(dogs)]
-        return torch.stack([c.n_found for c in cands]).cpu().numpy()
+        rows = _ext.compact_octaves(masks, cfg, plan.ext_caps)
+        return rows.n_found[0].cpu().numpy()
 
     return probe
 

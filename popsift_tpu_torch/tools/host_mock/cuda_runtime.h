@@ -2,12 +2,14 @@
 // popsift_tpu_torch/csrc and run it on the CPU, one std::thread per CUDA
 // thread (tools/host_mock.py builds with it). Blocks of a grid run one after
 // another, each with all its threads alive: __syncthreads and __syncwarp are
-// std::barriers, __shfl_xor_sync exchanges through a per-warp buffer between
-// two warp barriers (__shfl_up_sync, __shfl_down_sync and __any_sync
-// likewise, a lane without a source keeping its own value), __shared__
+// std::barriers, __shfl_xor_sync exchanges any type of up to 8 bytes through a
+// per-warp buffer between two warp barriers (__shfl_up_sync,
+// __shfl_down_sync, __ballot_sync and __any_sync likewise, a lane without a
+// source keeping its own value), __shared__
 // variables are statics (one block at a time) and dynamic shared memory is a
 // buffer of the launch. It provides what desc.cu, blur_dog.cu,
-// extrema_mask.cu and orient.cu use; a source that needs more (atomics, other
+// extrema_mask.cu, orient.cu, refine.cu and compact.cu use (__ldg,
+// __popc and __ffs too); a source that needs more (atomics, other
 // shuffles, textures) has to add it here. It checks indexing and arithmetic,
 // not races between blocks, and it is no measure of speed.
 #pragma once
@@ -39,40 +41,40 @@ inline int cudaGetLastError() { return 0; }
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 inline std::barrier<>* mock_block_bar;
 inline std::vector<std::unique_ptr<std::barrier<>>> mock_warp_bar;
-inline float mock_xchg[64][32];
+inline uint64_t mock_xchg[64][32];
 inline unsigned char* mock_dyn_smem;
 inline int mock_tid() { return threadIdx.x + blockDim.x * (threadIdx.y + blockDim.y * threadIdx.z); }
 inline void __syncthreads() { mock_block_bar->arrive_and_wait(); }
 inline void __syncwarp() { mock_warp_bar[mock_tid() >> 5]->arrive_and_wait(); }
-inline float __shfl_xor_sync(unsigned, float v, int d) {
-    int t = mock_tid(), w = t >> 5, l = t & 31;
-    mock_xchg[w][l] = v;
+template <class T> inline uint64_t mock_bits(T v) { uint64_t r = 0; std::memcpy(&r, &v, sizeof(T)); return r; }
+template <class T> inline T mock_from(uint64_t r) { T v; std::memcpy(&v, &r, sizeof(T)); return v; }
+inline int mock_warp_size(int w) { return std::min(32, (int)(blockDim.x * blockDim.y * blockDim.z) - 32 * w); }
+// lane l reads lane src(l) of its warp; a lane without a source keeps its value
+template <class T, class Src> inline T mock_exchange(T v, Src src) {
+    int t = mock_tid(), w = t >> 5, l = t & 31, n = mock_warp_size(w);
+    mock_xchg[w][l] = mock_bits(v);
     mock_warp_bar[w]->arrive_and_wait();
-    float r = mock_xchg[w][l ^ d];
-    mock_warp_bar[w]->arrive_and_wait();
-    return r;
-}
-inline float mock_shfl(float v, int delta) {
-    int t = mock_tid(), w = t >> 5, l = t & 31, src = l + delta;
-    int n = std::min(32, (int)(blockDim.x * blockDim.y * blockDim.z) - 32 * w);
-    mock_xchg[w][l] = v;
-    mock_warp_bar[w]->arrive_and_wait();
-    float r = (src >= 0 && src < n) ? mock_xchg[w][src] : v;
+    int s = src(l);
+    T r = (s >= 0 && s < n) ? mock_from<T>(mock_xchg[w][s]) : v;
     mock_warp_bar[w]->arrive_and_wait();
     return r;
 }
-inline float __shfl_up_sync(unsigned, float v, int d) { return mock_shfl(v, -d); }
-inline float __shfl_down_sync(unsigned, float v, int d) { return mock_shfl(v, d); }
-inline int __any_sync(unsigned, int pred) {
-    int t = mock_tid(), w = t >> 5, l = t & 31;
-    int n = std::min(32, (int)(blockDim.x * blockDim.y * blockDim.z) - 32 * w);
-    mock_xchg[w][l] = pred ? 1.f : 0.f;
+template <class T> inline T __shfl_xor_sync(unsigned, T v, int d) { return mock_exchange(v, [d](int l) { return l ^ d; }); }
+template <class T> inline T __shfl_up_sync(unsigned, T v, int d) { return mock_exchange(v, [d](int l) { return l - d; }); }
+template <class T> inline T __shfl_down_sync(unsigned, T v, int d) { return mock_exchange(v, [d](int l) { return l + d; }); }
+inline unsigned __ballot_sync(unsigned, int pred) {
+    int t = mock_tid(), w = t >> 5, l = t & 31, n = mock_warp_size(w);
+    mock_xchg[w][l] = pred ? 1u : 0u;
     mock_warp_bar[w]->arrive_and_wait();
-    int any = 0;
-    for (int i = 0; i < n; ++i) any |= mock_xchg[w][i] != 0.f;
+    unsigned bits = 0u;
+    for (int i = 0; i < n; ++i) bits |= (mock_xchg[w][i] ? 1u : 0u) << i;
     mock_warp_bar[w]->arrive_and_wait();
-    return any;
+    return bits;
 }
+inline int __any_sync(unsigned m, int pred) { return __ballot_sync(m, pred) != 0u; }
+template <class T> inline T __ldg(const T* p) { return *p; }
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline int __ffs(int v) { return __builtin_ffs(v); }
 inline int __float2int_rn(float v) { return (int)std::nearbyintf(v); }
 using std::max; using std::min;
 inline void mock_launch(dim3 grid, dim3 block, size_t smem, std::function<void()> body) {

@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
-"""Time the extremum-mask kernel (K1), the orientation-histogram kernel
-(K3), the descriptor kernel (K4) and the blur + DoG kernel (K5) the way
-the extraction path calls them, on one NVIDIA GPU.
+"""Time the kernels of the extraction path the way it calls them, and
+the path end to end, on one NVIDIA GPU: the extremum mask (K1), the
+compaction, the refinement (K2), the orientation histograms (K3), the
+descriptors (K4) and the blur + DoG (K5).
 
     python3 popsift_tpu_torch/tools/kernel_times.py [--tree DIR] [--reps N]
                                                     [--sass]
 
 Runs ``extract`` once on the 1080p bench frame (``bench.make_frame``,
 seed 0, ``SiftConfig(extrema_capacity=8192)``), times ``extract`` end to
-end (warm, host clock around work that ends in a synchronize), records
-every call the path makes to the K1, K3, K4 and K5 wrappers with its
-arguments,
+end (warm, host clock around work that ends in a synchronize) and
+``extract_batch`` of the frames of seeds 0-3 the same way (per frame),
+records every call the path makes to the wrappers of K1, the
+compaction, K2, K3, K4 and K5 with its arguments (a tree whose path
+compacts and refines per octave records those calls, with the counts
+they were given),
 and replays each kernel's calls of one frame: the median time per frame
 over ``--reps`` replays with CUDA events around the wrapper calls, and
-the device time of the kernels themselves from one ``torch.profiler`` pass over a replay
-(with the count of device records, to compare against the launches, and
-each launch's own time in launch order).
+the device time of the kernels themselves from one ``torch.profiler``
+pass over a replay (with the count of device records, to compare against
+the launches, each launch's own time in launch order, and the device
+time of every op of the replay, for a stage that is PyTorch ops).
 
 ``--tree DIR`` times the package of another checkout of this repository
 (default: the checkout this file lies in). To compare two versions of a
@@ -23,10 +28,11 @@ kernel, unpack the other commit beside this one and run the script on
 the two trees in turns (other, this, this, other) in one process chain on one
 card: times taken on different cards or days do not compare.
 
-``--sass`` also compiles ``csrc/extrema_mask.cu``, ``csrc/orient.cu``,
-``csrc/desc.cu`` and ``csrc/blur_dog.cu`` of the tree with ``-Xptxas -v`` and prints each kernel's registers, spills and
-shared memory, and the number of SASS instructions ``cuobjdump -sass``
-lists for it.
+``--sass`` also compiles the tree's sources of those kernels
+(``csrc/extrema_mask.cu``, ``compact.cu``, ``refine.cu``, ``orient.cu``,
+``desc.cu``, ``blur_dog.cu``, where present) with ``-Xptxas -v`` and
+prints each kernel's registers, spills and shared memory, and the number
+of SASS instructions ``cuobjdump -sass`` lists for it.
 
 Prints one JSON object on the last line.
 """
@@ -43,21 +49,26 @@ import sys
 import tempfile
 import time
 
+import numpy as np
+
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
 def sass_report(tree: str) -> dict:
     """Registers, spills, shared memory and SASS instruction counts of
-    the K1, K3, K4 and K5 sources of ``tree``."""
+    the kernel sources of ``tree``."""
     sys.path.insert(0, tree)
     from popsift_tpu_torch.ops.kernels import build
     nvcc = build.find_nvcc()
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for name in ("extrema_mask", "orient", "desc", "blur_dog"):
+        for name in ("extrema_mask", "compact", "refine", "orient", "desc",
+                     "blur_dog"):
             src = os.path.join(tree, "popsift_tpu_torch", "csrc", f"{name}.cu")
+            if not os.path.exists(src):
+                continue
             cubin = os.path.join(tmp, f"{name}.cubin")
             res = subprocess.run(
                 [nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-cubin", src,
@@ -110,7 +121,8 @@ def main(argv=None) -> int:
     from popsift_tpu_torch.ops import extrema as E
     from popsift_tpu_torch.ops import orientation as O
     from popsift_tpu_torch.ops import pyramid as P
-    from popsift_tpu_torch.pipeline import build_extract_plan, extract
+    from popsift_tpu_torch.pipeline import (build_extract_plan, extract,
+                                            extract_batch)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -122,16 +134,29 @@ def main(argv=None) -> int:
     frame = bench.make_frame(1080, 1920, seed=0)
     plan = build_extract_plan(SiftConfig(extrema_capacity=8192),
                               *frame.shape)
-    extract(frame, plan, dev)            # builds the kernels, warms up
-    torch.cuda.synchronize(dev)
-    frame_ms = []
-    for _ in range(args.reps):
-        t0 = time.perf_counter()
-        extract(frame, plan, dev)
-        torch.cuda.synchronize(dev)
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    frames = np.stack([bench.make_frame(1080, 1920, seed=s)
+                       for s in range(4)])
 
-    calls = {"K1": [], "K3": [], "K4": [], "K5": []}
+    def warm_ms(fn, per):
+        """Warm times in ms of ``fn()`` (host clock, ends in a
+        synchronize), divided by ``per``."""
+        fn()
+        torch.cuda.synchronize(dev)
+        out = []
+        for _ in range(args.reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize(dev)
+            out.append((time.perf_counter() - t0) * 1e3 / per)
+        return out
+
+    frame_ms = warm_ms(lambda: extract(frame, plan, dev), 1)
+    batch_ms = warm_ms(lambda: extract_batch(frames, plan, dev),
+                       frames.shape[0])
+
+    calls = {"K1": [], "compact": [], "K2": [], "K3": [], "K4": [],
+             "K5": []}
+    depth = [0]
 
     def record(kernel, mod, attr):
         fn = getattr(mod, attr, None)
@@ -139,12 +164,21 @@ def main(argv=None) -> int:
             return
 
         def wrapper(*a, **k):
-            calls[kernel].append((fn, a, k))
-            return fn(*a, **k)
+            if depth[0] == 0:          # not the calls a recorded call makes
+                calls[kernel].append((fn, a, k))
+            depth[0] += 1
+            try:
+                return fn(*a, **k)
+            finally:
+                depth[0] -= 1
         setattr(mod, attr, wrapper)
 
     record("K1", E, "candidate_mask")
     record("K1", E, "candidate_mask_octaves")
+    record("compact", E, "_compact_kernel")       # one call for all octaves
+    record("compact", E, "_compact_mask")         # per octave (older trees)
+    record("K2", E, "refine_state_octaves")
+    record("K2", E, "refine_state")
     record("K3", O, "orientation_hist")
     record("K3", O, "orientation_hist_octaves")
     record("K4", D, "descriptor_loop")
@@ -153,11 +187,15 @@ def main(argv=None) -> int:
     record("K5", P, "blur_dog_thin")
     feats = extract(frame, plan, dev)
     torch.cuda.synchronize(dev)
+    depth[0] = 1           # the replays below record nothing more
     result = {"card": smi, "tree": tree,
               "keypoints": int(feats.n_keypoints),
               "descriptors": int(feats.n_descriptors),
               "frame_ms_median": statistics.median(frame_ms),
-              "frame_ms_min": min(frame_ms)}
+              "frame_ms_min": min(frame_ms),
+              "batch_frames": int(frames.shape[0]),
+              "batch_ms_per_frame_median": statistics.median(batch_ms),
+              "batch_ms_per_frame_min": min(batch_ms)}
 
     for kernel, recorded in calls.items():
         def replay():
@@ -188,6 +226,10 @@ def main(argv=None) -> int:
             "event_ms_median": statistics.median(times),
             "event_ms_min": min(times),
             "device_ms": sum(e.self_device_time_total for e in ours) / 1e3,
+            # every device op of the replay, PyTorch's included
+            "device_ms_all": sum(e.self_device_time_total
+                                 for e in prof.key_averages()
+                                 if e.device_type == DeviceType.CUDA) / 1e3,
             "device_records": sum(e.count for e in ours),
             # each launch of the replay, in launch order
             "device_us_each": [

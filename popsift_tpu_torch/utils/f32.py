@@ -2,7 +2,17 @@
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
+
+
+@lru_cache(maxsize=64)
+def _divisor(b: float, dtype: torch.dtype, device: torch.device
+             ) -> torch.Tensor:
+    """The 0-d divisor ``b`` on ``device``, made once: a fill on the
+    device, not a copy from the host (which would wait for the stream)."""
+    return torch.full((), b, dtype=dtype, device=device)
 
 
 def div(a: torch.Tensor, b: float) -> torch.Tensor:
@@ -12,4 +22,4 @@ def div(a: torch.Tensor, b: float) -> torch.Tensor:
     ``tensor * (1 / scalar)``, which can differ from the division in the
     last bit; the JAX code (and the CUDA kernels) divide. A 0-d tensor on
     ``a``'s device as the divisor takes the elementwise division path."""
-    return a / torch.tensor(b, dtype=a.dtype, device=a.device)
+    return a / _divisor(float(b), a.dtype, a.device)

@@ -13,7 +13,9 @@ patch-fed and bucketed entries included, within 1e-5 x the row's max
 (fixed-order sums in another order than the plain version's reductions).
 K1's, K3's and K4's launches over several octaves equal their
 single-octave launches bit for bit, and two runs of K3 and K4 give the
-same bits.
+same bits. The compaction equals its plain version entry for entry and
+K2's all-octave launch equals its plain version bit for bit, and an
+extraction of an uploaded frame runs with no stream synchronisation.
 """
 
 import math
@@ -26,8 +28,8 @@ from popsift_tpu_torch.config import SiftConfig
 from popsift_tpu_torch.gauss import build_gauss_tables, full_kernel
 from popsift_tpu_torch.ops import extrema, patches
 from popsift_tpu_torch.ops import pyramid as pyr
-from popsift_tpu_torch.ops.kernels import (blur_chain, blur_dog, desc,
-                                           extrema_mask, orient, refine,
+from popsift_tpu_torch.ops.kernels import (blur_chain, blur_dog, compact,
+                                           desc, extrema_mask, orient, refine,
                                            window)
 
 pytestmark = pytest.mark.cuda
@@ -486,3 +488,82 @@ def test_bucketed_launches(dev):
     assert _rel_rows(got, desc.descriptor_loop_bucketed(
         blur, x, y, s, lv, ang, valid, 51, split, 33, plain=True))
     assert torch.all(got[~valid] == 0)
+
+
+def _masks(dev, F, shapes, density, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.random((F, *sh), dtype=np.float32)
+                             < density).to(dev) for sh in shapes]
+
+
+@pytest.mark.parametrize("F", [1, 4])
+@pytest.mark.parametrize("case", ["plan", "saturated", "pinned"])
+def test_compact_kernel(dev, F, case):
+    """Masks of five octave sizes (the largest of the large-mask branch,
+    three levels deep when saturated) in one call, every output equal to
+    the plain version's; frames whose masks start at unaligned bytes."""
+    shapes = [(3, 2160, 3840), (3, 135, 240), (3, 68, 120), (3, 17, 30),
+              (3, 9, 15)]
+    caps = {"plan": (8192, 4096, 2048, 512, 512),
+            "saturated": (256, 64, 32, 16, 16),
+            "pinned": (8192, 4096, 2048, 512, 512)}[case]
+    pinned = 2 if case == "pinned" else 0
+    masks = _masks(dev, F, shapes, 0.0004, seed=F)
+    masks[2][:, 1, 30, :] = True             # 120 candidates in one row
+    before = compact.launches
+    got = compact.compact_octaves(masks, caps, pinned, F)
+    torch.cuda.synchronize(dev)
+    assert compact.launches == before + 1
+    want = compact.compact_octaves_torch(masks, caps, pinned, F)
+    for name, a, b in zip(("x0", "y0", "z0", "n_found", "n_dropped"), got,
+                          want):
+        assert torch.equal(a, b), name
+    if case == "saturated":
+        assert bool((got[3][:, 0] == caps[0]).all())   # octave 0 saturates
+    else:
+        assert int(got[4].sum()) > 0          # the clamp dropped some
+
+
+@pytest.mark.parametrize("F", [1, 4])
+@pytest.mark.parametrize("vlfeat", [False, True])
+def test_refine_octaves_kernel(dev, F, vlfeat):
+    cfg = SiftConfig(sift_mode="vlfeat" if vlfeat else "popsift")
+    shapes = [(97, 131), (49, 66), (25, 33)]
+    caps = (512, 256, 64)
+    dogs = [torch.cat([_dog(dev, H=h, W=w, seed=7 * f + o)
+                       for f in range(F)]) for o, (h, w) in enumerate(shapes)]
+    masks = extrema.candidate_masks(dogs, cfg, F)
+    rows = extrema.compact_octaves(masks, cfg, caps, F)
+    assert int(rows.n_found.min()) > 0
+    before = refine.launches_octaves
+    kw = dict(maxlevel=5, vlfeat=vlfeat)
+    got = refine.refine_state_octaves(dogs, rows.x0, rows.y0, rows.z0,
+                                      rows.n_found, caps, F, **kw)
+    assert refine.launches_octaves == before + 1
+    ref = refine.refine_state_octaves_torch(dogs, rows.x0, rows.y0, rows.z0,
+                                            rows.n_found, caps, F, **kw)
+    assert torch.equal(got, ref)
+
+
+def test_extract_does_not_synchronize(dev):
+    """``extract`` and ``extract_batch`` of frames already on the card
+    queue all their work without one stream synchronisation."""
+    from popsift_tpu_torch.pipeline import (build_extract_plan, extract,
+                                            extract_batch)
+    rng = np.random.default_rng(3)
+    frames = torch.from_numpy(
+        (rng.random((2, 96, 128)) * 255).astype(np.uint8)).to(dev)
+    plan = build_extract_plan(SiftConfig(octaves=3), 96, 128)
+    want = extract(frames[0], plan, dev)              # builds, warms up
+    batch = extract_batch(frames, plan, dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        one = extract(frames[0], plan, dev)
+        two = extract_batch(frames, plan, dev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for a, b in zip(one, want):
+        assert torch.equal(a, b)
+    for a, b in zip(two, batch):
+        assert torch.equal(a, b)

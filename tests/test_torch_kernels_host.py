@@ -1,13 +1,14 @@
-"""The CUDA sources of K1, K3, K4 and K5 on the CPU, against their plain
-versions.
+"""The CUDA sources of K1-K5 on the CPU, against their plain versions.
 
 ``popsift_tpu_torch/tools/host_mock.py`` compiles ``csrc/extrema_mask.cu``,
-``csrc/orient.cu``, ``csrc/desc.cu`` and ``csrc/blur_dog.cu`` with g++
+``csrc/refine.cu``, ``csrc/orient.cu``, ``csrc/desc.cu`` and
+``csrc/blur_dog.cu`` with g++
 against a stand-in for the CUDA runtime (one std::thread per CUDA thread)
 and the tests call the C entry points on CPU tensors: the kernels' own
 indexing, strips, tile boxes, rings, bands and summation order run here,
 not a model of them. They need g++ and skip without it. Tolerances as on
-the card: masks, blur and DoG levels and the pick bit-equal
+the card: masks, refinement state, blur and DoG levels and the pick
+bit-equal
 (``-ffp-contract=off`` mirrors ``-fmad=false``), histograms and
 descriptors within 1e-5 x the row's max of the plain version (another
 summation order), a launch over several octaves bit-equal to the
@@ -27,6 +28,7 @@ from popsift_tpu_torch.ops.kernels import build
 from popsift_tpu_torch.ops.kernels import desc as K4
 from popsift_tpu_torch.ops.kernels import extrema_mask as K1
 from popsift_tpu_torch.ops.kernels import orient as K3
+from popsift_tpu_torch.ops.kernels import refine as K2
 from popsift_tpu_torch.tools import host_mock
 
 torch.set_num_threads(1)
@@ -361,3 +363,52 @@ def test_orientation_source_over_octaves(orient_lib):
             k += n
     assert orient_lib.ps_orientation_hist_octaves(
         None, 3, 10, 3, None, None, None, None, None, None, None) != 0
+
+
+@pytest.fixture(scope="module")
+def refine_lib():
+    return _library("refine")
+
+
+@pytest.mark.parametrize("vlfeat", [False, True])
+@pytest.mark.parametrize("F", [1, 3])
+def test_refine_octaves_source(refine_lib, F, vlfeat):
+    """K2's one launch over the rows of three octaves of F frames (rows on
+    the image border and on a frame's top layer, an octave with no live
+    row) equals ``refine_state_torch`` on each frame's octave, bit for
+    bit, and writes zeros past every count."""
+    rng = np.random.default_rng(F + 2 * vlfeat)
+    D, dims, caps = 5, [(40, 56), (20, 28), (10, 14)], (48, 24, 8)
+    dogs = [_dog_stack(rng, F * D, h, w) for h, w in dims]
+    Ktot = sum(caps)
+    cols = [[], [], []]
+    for f in range(F):
+        for (h, w), cap in zip(dims, caps):
+            cols[0].append(rng.integers(0, w, cap))
+            cols[1].append(rng.integers(0, h, cap))
+            cols[2].append(rng.integers(1, D - 1, cap))
+    x0, y0, z0 = (torch.from_numpy(np.concatenate(c).astype(np.int32))
+                  for c in cols)
+    z0[::5] = D - 2
+    n_found = torch.from_numpy(rng.integers(1, np.asarray(caps) + 1,
+                                            (F, 3)))
+    n_found[0, 2] = 0
+    out = torch.full((F * Ktot, 16), -1.0)
+    table = np.asarray([[d.data_ptr(), D, *d.shape[1:], e] for d, e in
+                        zip(dogs, np.cumsum(caps))], np.int64)
+    assert refine_lib.ps_refine_octaves(
+        table.ctypes.data, 3, F, x0.data_ptr(), y0.data_ptr(), z0.data_ptr(),
+        n_found.data_ptr(), D, int(vlfeat), out.data_ptr(), None) == 0
+    offs = np.concatenate([[0], np.cumsum(caps)])
+    for f in range(F):
+        for o, dog in enumerate(dogs):
+            rows = slice(f * Ktot + offs[o], f * Ktot + offs[o + 1])
+            want = K2.refine_state_torch(
+                dog[f * D:(f + 1) * D], x0[rows], y0[rows], z0[rows],
+                int(n_found[f, o]), maxlevel=D, vlfeat=vlfeat)
+            assert torch.equal(out[rows], want), (f, o)
+    assert torch.equal(out, K2.refine_state_octaves(
+        dogs, x0, y0, z0, n_found, caps, F, maxlevel=D, vlfeat=vlfeat))
+    assert int((out != 0).any(1).sum()) > F * 20
+    assert refine_lib.ps_refine_octaves(table.ctypes.data, 0, F, None, None,
+                                        None, None, D, 0, None, None) != 0
