@@ -75,7 +75,26 @@ any failed phase raises and the script exits non-zero:
    the single-octave and batched entries of K1 and of K2, the latter
    held bit-equal to K2's all-octave launch) driven once on the densest
    octave's rows; warm ms/frame of each route, interleaved with the
-   default route.
+   default route;
+7. the match path: ``PopSift(cfg, mode="matching", device="cuda")``
+   ``.enqueue`` of frame 0 and of its (3, 5) roll with the counters reset
+   just before them (every kernel of the main path twice its phase-4
+   count, nothing else), 2110 / 2505 on frame 0; the self-match (each
+   valid row's best is itself, or an earlier row with a bit-identical
+   descriptor, at distance < 1e-6); frame 0 against the roll and against
+   seed 1 equal to the CPU run of the same matcher on the valid rows
+   (near-ties at most 0.1 %, distances within 1e-4); the matcher with
+   TF32 on equal to the run with it off; q8 equal to its CPU run, and q8
+   and pruned keeping the exact matcher's nearest neighbour on >= 99 % of
+   its accepted rows (pruned also its accepts); homography RANSAC on the
+   accepted matches (>= 90 % of the matches that the known shift moves
+   within 2 px are inliers, no inlier 2.5 px off it, the inliers' mean
+   shift within 0.05 px, the model's corners within 0.5 px); essential
+   RANSAC and ``solve_pairs_batch`` on seeded synthetic scenes, the card
+   against the CPU from the same ranks; the match CLI with ``--device
+   cuda --geom homography`` against the API; times (CUDA events, median
+   of 10) of the exact matcher on the padded sets beside its bound and
+   the ``cdist`` + ``topk`` library call, of q8, pruned and each RANSAC.
 
 TF32 is switched off for matmuls and cuDNN (the plain versions must run
 in full f32). The second line before the last is a JSON object with one
@@ -1385,6 +1404,307 @@ def routes_phase(frames: list, dev, reps: int = 7) -> dict:
     return out
 
 
+def _same_ransac(tag: str, got, ref, err_fn, x1, x2, valid,
+                 thresh: float) -> None:
+    """A RANSAC result on the card against the CPU run from the same
+    ranks: the model within 1e-4 after scale and sign are normalised, or
+    a different hypothesis whose MSAC score lies within 1e-6 relative;
+    the inlier masks equal except points whose error under the CPU model
+    lies within 1e-4 relative of the gate. The score is printed: it is
+    the chosen 8-point hypothesis's, whose f32 null vector differs
+    between the two SVD solvers by about its condition number x eps."""
+    a = ref.model.flatten() / ref.model.norm()
+    b = got.model.cpu().flatten() / got.model.norm().cpu()
+    b = b if float(a @ b) >= 0 else -b
+    model_err = float((a - b).abs().max())
+    s_ref, s_got = float(ref.score), float(got.score)
+    check(model_err <= 1e-4 or abs(s_got - s_ref) <= 1e-6 * abs(s_ref),
+          f"{tag}: model off the CPU run by {model_err} (scores {s_got} / "
+          f"{s_ref})")
+    err = err_fn(ref.model[None], x1, x2)[0]
+    near = (err - thresh).abs() <= 1e-4 * thresh
+    differ = got.inliers.cpu() != ref.inliers
+    check(not bool((differ & ~near & valid).any()),
+          f"{tag}: inlier masks differ away from the gate")
+    say(f"{tag}: card against CPU from the same ranks: model {model_err:.3g}"
+        f" after normalisation, score {s_got:.6g} / {s_ref:.6g}, inliers "
+        f"{int(got.n_inliers)} / {int(ref.n_inliers)}, "
+        f"{int(differ.sum())} mask entries differ at the gate")
+
+
+def _synthetic_pairs(seed: int, n_edges: int, n: int = 1000):
+    """Seeded two-view scenes: normalized observations of points in a wide
+    field of view from cameras 15 degrees and a unit baseline apart,
+    3e-4 noise, a fifth of each edge's rows outliers, the last rows of
+    each edge invalid. Returns (x1, x2, valid) as f32/bool [B, N, .]."""
+    rng = np.random.default_rng(seed)
+    axis = np.array([0.3, 1.0, 0.2]) / np.linalg.norm([0.3, 1.0, 0.2])
+    a = np.deg2rad(15.0)
+    K = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                  [-axis[1], axis[0], 0]])
+    R = np.eye(3) + np.sin(a) * K + (1 - np.cos(a)) * (K @ K)
+    x1s, x2s, vs = [], [], []
+    for e in range(n_edges):
+        X = rng.uniform([-3, -3, 2], [3, 3, 5], size=(n, 3))
+        Xc = X @ R.T + np.array([1.0, 0.2 * e, 0.3])
+        x1 = X[:, :2] / X[:, 2:3] + rng.normal(0, 3e-4, (n, 2))
+        x2 = Xc[:, :2] / Xc[:, 2:3] + rng.normal(0, 3e-4, (n, 2))
+        x2[: n // 5] = rng.uniform(-1, 1, (n // 5, 2))
+        valid = np.arange(n) < n - 10 * (e + 1)
+        x1s.append(x1)
+        x2s.append(x2)
+        vs.append(valid)
+    return (torch.from_numpy(np.stack(x1s).astype(np.float32)),
+            torch.from_numpy(np.stack(x2s).astype(np.float32)),
+            torch.from_numpy(np.stack(vs)))
+
+
+def match_phase(frames: list, dev, per_frame: dict, reps: int = 10,
+                shift: tuple = (3, 5)) -> dict:
+    """popsift-match on the card: two ``enqueue``s in matching mode with
+    the launch counters reset just before them, the matchers against
+    their CPU runs, RANSAC, the CLI, and the times of each (CUDA events,
+    median of ``reps``). ``per_frame`` holds the main path's launches of
+    one frame (phase 4). Returns the times."""
+    import contextlib
+    import io
+    import tempfile
+
+    from popsift_tpu_torch.api import PopSift
+    from popsift_tpu_torch.cli import match as match_cli
+    from popsift_tpu_torch.config import SiftConfig
+    from popsift_tpu_torch.io.image import write_pgm
+    from popsift_tpu_torch.ops import kernels
+    from popsift_tpu_torch.ops import matching as M
+    from popsift_tpu_torch.sfm import twoview as T
+
+    f0, f1 = frames[0], frames[1]
+    fs = np.roll(f0, shift, axis=(0, 1))
+    ps = PopSift(SiftConfig(extrema_capacity=8192), mode="matching",
+                 device=dev)
+    kernels.reset_launch_counts()
+    d0 = ps.enqueue(f0).get()
+    ds = ps.enqueue(fs).get()
+    launches = kernels.launch_counts()
+    say(f"match path: two enqueues, launches {launches}")
+    for name, n in launches.items():
+        want = 2 * per_frame[name] if name in MAIN_PATH else 0
+        check(n == want, f"match path: {name} launched {n} times, expected "
+              f"{want} (twice the main path's {per_frame.get(name, 0)})")
+    for name in FUSED_ONCE:
+        check(launches[name] == 2, f"match path: {name} not once per image")
+    check(d0.getFeatureCount() == BENCH_KEYPOINTS
+          and d0.getDescriptorCount() == BENCH_DESCRIPTORS,
+          f"match path: frame 0 gave {d0.getFeatureCount()} / "
+          f"{d0.getDescriptorCount()}")
+    d1 = ps.enqueue(f1).get()
+    say(f"match path: descriptors frame 0 {d0.getDescriptorCount()}, "
+        f"shifted {ds.getDescriptorCount()}, seed 1 "
+        f"{d1.getDescriptorCount()} of {d0.descriptors.shape[0]} padded rows")
+
+    v0 = d0.desc_valid
+    n_valid = int(v0.sum())
+    own = d0.match(d0)
+    live = v0.nonzero().squeeze(1)
+    best = own.best_idx[live]
+    # a row whose descriptor another row repeats bit for bit matches the
+    # lower of the two rows (the first minimal column, as JAX's argmin)
+    other = best != live
+    twins = bool(torch.equal(d0.descriptors[best[other]],
+                             d0.descriptors[live[other]]))
+    check(twins and bool((best[other] < live[other]).all())
+          and float(own.best_dist[live].max()) < 1e-6,
+          "self-match: a valid row's best is neither itself nor an earlier "
+          "row with the same descriptor, or lies at distance >= 1e-6")
+    say(f"self-match of frame 0: {n_valid - int(other.sum())} of {n_valid} "
+        f"valid rows match themselves, {int(other.sum())} an earlier row "
+        f"with a bit-identical descriptor; distances "
+        f"{float(own.best_dist[live].min()):.3g} to "
+        f"{float(own.best_dist[live].max()):.3g}")
+
+    exact = {}
+    for tag, dr in (("shifted", ds), ("seed 1", d1)):
+        got = exact[tag] = d0.match(dr)
+        live = v0.nonzero().squeeze(1)
+        ref = M.match_descriptors(d0.descriptors[live].cpu(), v0[live].cpu(),
+                                  dr.descriptors.cpu(), dr.desc_valid.cpu())
+        g = [f[live].cpu() for f in got]
+        for k in (2, 3):
+            check(bool(torch.isclose(g[k], ref[k], rtol=0, atol=1e-4).all()),
+                  f"frame 0 / {tag}: distances off the CPU run by more than "
+                  f"1e-4")
+        ties = ((g[0] != ref.best_idx) | (g[1] != ref.second_idx)
+                | (g[4] != ref.accept))
+        n_ties = int(ties.sum())
+        check(n_ties <= 1e-3 * n_valid, f"frame 0 / {tag}: {n_ties} rows "
+              f"differ from the CPU run (near-ties), over 0.1 % of {n_valid}")
+        say(f"frame 0 / {tag}: {int(g[4].sum())} accepted; indices and "
+            f"accept equal to the CPU run on {n_valid - n_ties} of {n_valid} "
+            f"valid rows ({n_ties} near-ties), distances within 1e-4")
+
+    ex = exact["shifted"]
+    matmul = torch.backends.cuda.matmul
+    matmul.allow_tf32 = True
+    try:
+        tf32 = d0.match(ds)
+        restored = matmul.allow_tf32
+    finally:
+        matmul.allow_tf32 = False
+    check(restored and all(torch.equal(a, b) for a, b in zip(tf32, ex)),
+          "the matcher's result changed with TF32 on, or the switch was "
+          "not restored")
+    say("matcher with TF32 on: equal to the run with it off in every field")
+
+    args = (d0.descriptors, v0, ds.descriptors, ds.desc_valid)
+    q8 = M.match_descriptors_q8(*args)
+    ref = M.match_descriptors_q8(d0.descriptors[live].cpu(), v0[live].cpu(),
+                                 ds.descriptors.cpu(), ds.desc_valid.cpu())
+    check(all(torch.equal(a[live].cpu(), b) for a, b in zip(q8, ref)),
+          "q8 matcher: the card differs from the CPU run")
+    for name, r in (("q8", q8), ("pruned", M.match_descriptors_pruned(*args))):
+        same = (r.best_idx == ex.best_idx)[ex.accept]
+        recall = float((same & r.accept[ex.accept]).float().mean())
+        nearest = float(same.float().mean())
+        # the q8 ratio test flips accepts whose exact ratio lies near 0.8
+        # (a tenth of frame 0 / shifted's accepted rows lie above 0.68)
+        check(nearest >= 0.99 and (name == "q8" or recall >= 0.99),
+              f"{name} matcher: nearest neighbour kept on {nearest}, recall "
+              f"{recall} against exact")
+        say(f"{name} matcher on frame 0 / shifted: the exact matcher's "
+            f"nearest neighbour kept on {nearest:.4f} of its accepted rows, "
+            f"recall (same neighbour and accepted) {recall:.4f}"
+            + (", equal to its CPU run in every field" if name == "q8"
+               else ""))
+
+    # RANSAC: a homography on frame 0 / shifted's accepted matches
+    acc = ex.accept.nonzero().squeeze(1)
+    lk, rk = d0.raw.desc_kp[acc], ds.raw.desc_kp[ex.best_idx[acc]]
+    n_acc = acc.numel()
+    cap = max(64, 1 << (n_acc - 1).bit_length())
+    pl = torch.zeros(cap, 2, device=dev)
+    pr = torch.zeros(cap, 2, device=dev)
+    pl[:n_acc] = torch.stack([d0.raw.x[lk], d0.raw.y[lk]], 1)
+    pr[:n_acc] = torch.stack([ds.raw.x[rk], ds.raw.y[rk]], 1)
+    vmask = torch.arange(cap, device=dev) < n_acc
+    gen = torch.Generator(device=dev).manual_seed(0)
+    hom = T.ransac_homography(gen, pl, pr, vmask, thresh=4.0, n_hyp=512)
+    H = hom.model.double().cpu()
+    h, w = f0.shape
+    corners = torch.tensor([[0, 0, 1], [w - 1, 0, 1], [0, h - 1, 1],
+                            [w - 1, h - 1, 1]], dtype=torch.float64)
+    mapped = corners @ H.T
+    true = torch.tensor([shift[1], shift[0]], dtype=torch.float64)
+    moved = mapped[:, :2] / mapped[:, 2:] - corners[:, :2]
+    corner_err = float((moved - true).abs().max())
+    # the ratio test accepts wrong matches too (a quarter of this pair's
+    # lie tens of px off): hold the inliers to the matches that the known
+    # shift moves within the 2 px gate, and their least-squares shift
+    # (the mean displacement) to 0.05 px; a 4-point hypothesis carries
+    # its points' noise (0.08 px median) to the corners
+    disp = (pr - pl)[:n_acc].double().cpu()
+    off = (disp - true).norm(dim=1)
+    inl = hom.inliers[:n_acc].cpu()
+    ls_err = float((disp[inl].mean(0) - true).abs().max())
+    n_inl, n_true = int(hom.n_inliers), int((off < 2.0).sum())
+    n_wrong = int((inl & (off >= 2.5)).sum())
+    check(n_inl >= 0.9 * n_true and n_wrong == 0,
+          f"homography: {n_inl} inliers against {n_true} matches within 2 "
+          f"px of the shift, {n_wrong} inliers 2.5 px or more off it")
+    check(ls_err <= 0.05 and corner_err <= 0.5,
+          f"homography: the inliers' mean shift {ls_err} px and the model's "
+          f"corners {corner_err} px off the ({shift[1]}, {shift[0]}) shift")
+    say(f"homography RANSAC on frame 0 / shifted: {n_inl} inliers of {n_acc}"
+        f" accepted matches ({n_true} lie within 2 px of the known shift); "
+        f"the inliers' mean shift within {ls_err:.4f} px, the model's "
+        f"corners within {corner_err:.4f} px of ({shift[1]}, {shift[0]})")
+
+    # RANSAC from the same ranks on the card and on the CPU
+    x1, x2, vv = _synthetic_pairs(0, 3)
+    ranks = T.draw_ranks(torch.Generator().manual_seed(1), vv, 512, 8)
+    thresh = 1e-5
+    ref = T.ransac_essential(None, x1[0], x2[0], vv[0], thresh, ranks=ranks[0])
+    got = T.ransac_essential(None, x1[0].to(dev), x2[0].to(dev),
+                             vv[0].to(dev), thresh, ranks=ranks[0].to(dev))
+    _same_ransac("essential RANSAC", got, ref, T.sampson_error, x1[0], x2[0],
+                 vv[0], thresh)
+    ref = T.solve_pairs_batch(None, x1, x2, vv, thresh, ranks=ranks)
+    got = [a.cpu() for a in T.solve_pairs_batch(
+        None, x1.to(dev), x2.to(dev), vv.to(dev), thresh,
+        ranks=ranks.to(dev))]
+    good = ref[2]
+    x_err = ((got[3] - ref[3]).abs().amax(-1) / ref[3].norm(dim=-1))[good]
+    errs = {"R": float((got[0] - ref[0]).abs().max()),
+            "t": float((got[1] - ref[1]).abs().max()),
+            "X (relative, good rows)": float(x_err.max())}
+    check(errs["R"] <= 1e-4 and errs["t"] <= 1e-4 and errs[
+        "X (relative, good rows)"] <= 1e-4 and torch.equal(got[2], good),
+        f"solve_pairs_batch: card against CPU {errs}, good rows equal "
+        f"{torch.equal(got[2], good)}")
+    say(f"solve_pairs_batch of 3 edges: card against CPU from the same ranks"
+        f" {errs}, good rows equal ({int(good.sum())})")
+
+    # the CLI (no capacity flag: SiftConfig()) on frame 0 / shifted written
+    # as PGM, against the API run with the same configuration
+    dflt = PopSift(SiftConfig(), mode="matching", device=dev)
+    e0, es = dflt.enqueue(f0).get(), dflt.enqueue(fs).get()
+    api_acc = int(e0.match(es).accept.sum())
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, n) for n in ("f0.pgm", "shifted.pgm")]
+        write_pgm(paths[0], f0)
+        write_pgm(paths[1], fs)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = match_cli.main(["-l", paths[0], "-r", paths[1], "--device",
+                                 str(dev), "--geom", "homography"])
+    lines = out.getvalue().splitlines()
+    cli_acc = int([l for l in lines if l.startswith("accepted matches:")][0]
+                  .split(": ")[1])
+    geom = [l for l in lines if l.startswith("geometric verification")]
+    check(rc == 0 and cli_acc == api_acc and len(geom) == 1,
+          f"CLI: rc {rc}, {cli_acc} accepted against the API's {api_acc}")
+    say(f"CLI --device {dev} --geom homography: {cli_acc} accepted matches "
+        f"(the API run of SiftConfig(): {api_acc}); {geom[0]}")
+
+    # times
+    L = d0.descriptors.shape[0]
+    t = {}
+    t["match_descriptors"] = median_ms(lambda: d0.match(ds), dev, reps, 1)
+
+    def library():
+        for a in range(0, L, 4096):
+            torch.topk(torch.cdist(d0.descriptors[a:a + 4096],
+                                   ds.descriptors), 2, 1, largest=False)
+
+    t["library"] = median_ms(library, dev, reps, 1)
+    t["match_descriptors_q8"] = median_ms(
+        lambda: M.match_descriptors_q8(*args), dev, reps, 1)
+    t["match_descriptors_pruned"] = median_ms(
+        lambda: M.match_descriptors_pruned(*args), dev, reps, 1)
+    L_d = e0.descriptors.shape[0]
+    t["match_descriptors_default"] = median_ms(lambda: e0.match(es), dev,
+                                               reps, 1)
+    t["ransac_homography"] = median_ms(lambda: T.ransac_homography(
+        gen, pl, pr, vmask, thresh=4.0, n_hyp=512), dev, reps, 1)
+    xd, x2d, vd = x1.to(dev), x2.to(dev), vv.to(dev)
+    t["ransac_essential"] = median_ms(lambda: T.ransac_essential(
+        gen, xd[0], x2d[0], vd[0], thresh, n_hyp=512), dev, reps, 1)
+    t["solve_pairs_batch"] = median_ms(lambda: T.solve_pairs_batch(
+        gen, xd, x2d, vd, thresh, n_hyp=512), dev, reps, 1)
+    for n_rows, key in ((L, "match_descriptors"),
+                        (L_d, "match_descriptors_default")):
+        ops_ms = 2.0 * n_rows * n_rows * 128 / F32_FLOP_PER_S * 1e3
+        field_ms = 4.0 * n_rows * n_rows / HBM_BYTES_PER_S * 1e3
+        t[key + "_bound"] = max(ops_ms, field_ms)
+        say(f"exact matcher {n_rows} x {n_rows}: {t[key]:.3f} ms, bound "
+            f"{max(ops_ms, field_ms):.3f} ms (operations {ops_ms:.3f}, the "
+            f"distance field's bytes {field_ms:.3f})")
+    say(f"matcher library call (cdist + topk(2), 4096 rows a call) "
+        f"{L} x {L}: {t['library']:.3f} ms")
+    say("phase 7 times, ms, CUDA events, median of %d: %s"
+        % (reps, json.dumps({k: round(v, 4) for k, v in t.items()})))
+    return t
+
+
 def profile_phase(frame: np.ndarray, dev, out_dir: str) -> None:
     """A torch.profiler table of one run of the main path, of the window
     route and of the chain front, written to DIR/profile*.txt."""
@@ -1437,6 +1757,8 @@ def main(argv=None) -> int:
     runs = {"main": launches, "batch": batch_phase(frames, dev)}
     say("phase 6: window route, chain front and the entries off every path")
     runs.update(routes_phase(frames, dev))
+    say("phase 7: match path")
+    match_phase(frames, dev, launches)
     for r in rows:
         r["launches"] = runs[LAUNCHES_FROM[r["name"]]][r["name"]]
         check(r["launches"] > 0, f"{r['name']} was launched no time in the "

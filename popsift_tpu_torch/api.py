@@ -8,9 +8,8 @@ read back on the way); ``get`` is where the host waits, bringing the
 result to the host.
 ``enqueue_batch`` runs F same-sized frames as one batched extraction and
 returns one job per frame; ``calibrate`` pins per-octave capacities for
-later calls on that frame size.
-
-Not ported yet: ``FeaturesDev.match`` (ROADMAP A11).
+later calls on that frame size. ``FeaturesDev.match`` ratio-test matches
+two device results where they lie.
 """
 
 from __future__ import annotations
@@ -23,6 +22,7 @@ import numpy as np
 import torch
 
 from .config import SiftConfig
+from .ops.matching import MatchResult, match_descriptors
 from .ops.pyramid import FRONTS
 from .pipeline import (DETECT_ROUTES, ExtractPlan, SiftFeatures,
                        build_extract_plan, calibrate_plan, extract,
@@ -121,6 +121,15 @@ class FeaturesDev:
 
     def getDescriptorCount(self) -> int:
         return int(self.raw.n_descriptors)
+
+    def match(self, other: "FeaturesDev") -> MatchResult:
+        """Ratio-test match of these descriptors against ``other``'s
+        (FeaturesDev::match, features.cu:163-302) on their device: one
+        row per capacity-padded row here, indices into ``other``'s
+        padded rows (:func:`popsift_tpu_torch.ops.matching
+        .match_descriptors`)."""
+        return match_descriptors(self.raw.desc, self.raw.desc_valid,
+                                 other.raw.desc, other.raw.desc_valid)
 
 
 class SiftJob:

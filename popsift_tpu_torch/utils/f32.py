@@ -2,9 +2,25 @@
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from functools import lru_cache
 
 import torch
+
+
+@contextmanager
+def full_f32():
+    """Run the CUDA matrix products inside in full f32, whatever the
+    caller's TF32 switch says (the JAX code asks for
+    ``Precision.HIGHEST``), and restore the switch after. Also a
+    decorator: ``@full_f32()``."""
+    matmul = torch.backends.cuda.matmul
+    was = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        matmul.allow_tf32 = was
 
 
 @lru_cache(maxsize=64)
