@@ -48,8 +48,9 @@ any failed phase raises and the script exits non-zero:
    already on the card under ``torch.cuda.set_sync_debug_mode("error")``
    (no synchronising call), equal to the enqueued run in every field, and
    one profiler pass of it (device ops, device busy time, host launch
-   calls, stream syncs: 0, sorts: 0, launch calls under 700); the two
-   golden scenes (tests/golden) within the golden tolerances; warm
+   calls, stream syncs: 0, sorts: 0, launch calls under 700); the five
+   golden scenes (tests/golden, the two defaults and the three variant
+   configurations) within the golden tolerances; warm
    ms/frame of the kernel path and of the plain-PyTorch path on the
    card, and the counts of the ``SiftConfig()`` default;
 5. the batch path ``enqueue_batch`` of the four frames, counters reset
@@ -94,7 +95,27 @@ any failed phase raises and the script exits non-zero:
    against the CPU from the same ranks; the match CLI with ``--device
    cuda --geom homography`` against the API; times (CUDA events, median
    of 10) of the exact matcher on the padded sets beside its bound and
-   the ``cdist`` + ``topk`` library call, of q8, pruned and each RANSAC.
+   the ``cdist`` + ``topk`` library call, of q8, pruned and each RANSAC;
+8. the extraction variants: each configuration of ``VARIANTS`` (the three
+   golden variant configurations, ``sift_mode="opencv"``, direct
+   scaling, vlfeat-relative-all, fixed15, ``upscale_factor=0`` and the
+   grid filter at 1000 in its three orders) through ``enqueue`` of frame
+   0 with ``extrema_capacity=8192``, and one through ``enqueue_batch`` of
+   the four frames on the window route, with the counters reset just
+   before it: the launches :func:`expected_launches` gives (K5's thin
+   entry 0 where the strategy does not allow it, K4 0 for the
+   plain-torch descriptor variants), each frame of ``enqueue`` equal to
+   ``extract_batch``, the run equal to its ``plain=True`` run on the card
+   (masks and counts exact, x, y and sigma bit-equal, orientations and
+   descriptors within the golden tolerances) with K3's and K4's rows
+   within 1e-5 x the row's max of their plain versions on the same
+   inputs, the same run again under ``set_sync_debug_mode("error")``,
+   and warm ms/frame (median of 5) beside the default configuration's;
+   one variant on a 480 x 640 crop against the port's CPU run (golden
+   tolerances); the plain-torch descriptor variants timed on the bench
+   frame's jobs beside K4, with their bound; K1 on
+   ``synthetic_image(1080, 1920)`` beside the bench frame; ms/frame of
+   batches of 1, 2 and 8 frames.
 
 TF32 is switched off for matmuls and cuDNN (the plain versions must run
 in full f32). The second line before the last is a JSON object with one
@@ -912,14 +933,23 @@ def kernels_phase(frames: list, dev, reps: int = 20) -> list:
 
 
 def golden_phase(dev) -> None:
-    """The port on the card against the oracle goldens of
-    tests/golden (tolerances of tests/test_golden.py:21-24)."""
+    """The port on the card against the five oracle goldens of
+    tests/golden (configurations of scripts/make_golden.py:28-55,
+    tolerances of tests/test_golden.py:21-24)."""
     from popsift_tpu_torch.api import PopSift
     from popsift_tpu_torch.config import SiftConfig
-    cases = {"scene64_default": (synthetic_image(64, 80, seed=3),
-                                 SiftConfig(octaves=3)),
+    s64 = synthetic_image(64, 80, seed=3)
+    cases = {"scene64_default": (s64, SiftConfig(octaves=3)),
              "scene120_default": (synthetic_image(120, 160, seed=7),
-                                  SiftConfig(octaves=4))}
+                                  SiftConfig(octaves=4)),
+             "scene64_vlfeat_igrid": (s64, SiftConfig(
+                 octaves=3, sift_mode="vlfeat", desc_mode="igrid",
+                 norm_mode="classic")),
+             "scene64_grid_fixed9": (s64, SiftConfig(
+                 octaves=3, gauss_mode="fixed9", desc_mode="grid")),
+             "scene64_iloop_interp": (s64, SiftConfig(
+                 octaves=3, desc_mode="iloop",
+                 downscale_mode="interpolate"))}
     for name, (img, cfg) in cases.items():
         want = np.load(os.path.join(REPO, "tests", "golden", f"{name}.npz"))
         host = PopSift(cfg, device=dev).enqueue(img).get()
@@ -1705,6 +1735,329 @@ def match_phase(frames: list, dev, per_frame: dict, reps: int = 10,
     return t
 
 
+# phase 8: the extraction variants on the bench frame, each a set of
+# SiftConfig keywords beside extrema_capacity=8192
+VARIANTS = {
+    "vlfeat_igrid": dict(sift_mode="vlfeat", desc_mode="igrid",
+                         norm_mode="classic"),
+    "grid_fixed9": dict(gauss_mode="fixed9", desc_mode="grid"),
+    "iloop_interp": dict(desc_mode="iloop", downscale_mode="interpolate"),
+    "sift_opencv": dict(sift_mode="opencv"),
+    "direct": dict(scaling_mode="direct"),
+    "relative_all": dict(gauss_mode="vlfeat-relative-all"),
+    "fixed15": dict(gauss_mode="fixed15"),
+    "upscale0": dict(upscale_factor=0.0),
+    "filter_largest": dict(filter_max_extrema=1000, filter_grid_size=2,
+                           grid_filter_mode="largest"),
+    "filter_smallest": dict(filter_max_extrema=1000, filter_grid_size=2,
+                            grid_filter_mode="smallest"),
+    "filter_random": dict(filter_max_extrema=1000, filter_grid_size=2,
+                          grid_filter_mode="random"),
+}
+# driven through enqueue_batch of the four frames on the window route
+# (loop descriptors: a plain-torch variant costs 0.25-1 s a frame)
+BATCH_VARIANT = ("interp_relative_all_filter_windows_batch",
+                 dict(downscale_mode="interpolate",
+                      gauss_mode="vlfeat-relative-all",
+                      filter_max_extrema=1000))
+# held against the port's CPU run on a 480 x 640 crop of the bench frame
+CPU_VARIANT = dict(sift_mode="opencv", gauss_mode="fixed15",
+                   downscale_mode="interpolate", filter_max_extrema=300)
+INT_FIELDS = ("octave", "num_ori", "valid", "ori_valid", "desc_kp",
+              "desc_valid", "n_keypoints", "n_descriptors",
+              "octave_candidates", "octave_dropped")
+
+
+def expected_launches(cfg, plan, detect: str, batch: bool) -> dict:
+    """Launches per kernel entry of one extraction of ``cfg``: K5 once
+    per level of every octave it blurs (octave 0 of the fixed modes is
+    plain torch) and its thin entry once where the strategy allows it
+    (incremental, pick every second pixel, indirect scaling), K1, the
+    compaction and K3 once, K2 once on the fused route or K6 once per
+    octave on the window route, K4 once for ``desc_mode="loop"`` (the
+    other variants are plain torch), nothing else."""
+    from popsift_tpu_torch.ops import kernels
+    from popsift_tpu_torch.ops.pyramid import first_thin_octave
+    n_oct = len(plan.pyramid.dims)
+    first = first_thin_octave(plan.pyramid)
+    fixed = cfg.gauss_mode in ("fixed9", "fixed15")
+    want = dict.fromkeys(kernels.ENTRIES, 0)
+    want.update({"blur_dog": (cfg.total_levels - 1)
+                 * (first - (1 if fixed else 0)),
+                 "blur_dog_thin": int(first < n_oct),
+                 "extrema_mask_octaves": 1, "compact": 1,
+                 "orientation_hist_octaves": 1,
+                 "descriptor_loop_octaves": int(cfg.desc_mode == "loop")})
+    if detect == "windows":
+        want["extract_windows_batched" if batch else "extract_windows"] = \
+            n_oct
+    else:
+        want["refine_octaves"] = 1
+    return want
+
+
+def _same_features(tag: str, got, ref, desc_mode: str,
+                   tol: dict | None = None) -> dict:
+    """``got`` against ``ref`` (SiftFeatures of the same frames): masks,
+    counts and the other integer fields exact, then x, y, sigma,
+    orientations and descriptors within ``tol`` (default: the kernels'
+    run against the plain run on the card, x, y and sigma bit-equal, K2
+    and K5 being bit-equal to their plain versions, orientations and
+    descriptors within the golden tolerances, since K3's summation order
+    moves an angle in its last bits and the descriptor with it; a
+    plain-torch descriptor variant's rows whose angles are bit-equal
+    must be bit-equal). Returns the largest differences."""
+    for name in INT_FIELDS:
+        a, b = getattr(got, name), getattr(ref, name)
+        check(a.shape == b.shape and bool(torch.equal(a, b)),
+              f"{tag}: {name} differs from the reference run")
+    valid, dvalid, ov = ref.valid, ref.desc_valid, ref.ori_valid
+    diff = lambda a, b, m: float((a - b)[m].abs().max()) if bool(m.any()) \
+        else 0.0
+    err = {k: diff(getattr(got, k), getattr(ref, k), valid)
+           for k in ("x", "y", "sigma")}
+    err["ori"] = diff(got.ori, ref.ori, ov)
+    err["desc"] = diff(got.desc, ref.desc, dvalid)
+    if tol is None:
+        tol = dict(x=0.0, y=0.0, sigma=0.0, ori=GOLDEN_TOL["ori"],
+                   desc=GOLDEN_TOL["desc"])
+        if desc_mode != "loop":
+            same = (got.ori == ref.ori).all(-1).gather(-1, got.desc_kp) \
+                & dvalid
+            err["rows_with_moved_angle"] = int((dvalid & ~same).sum())
+            check(bool(torch.equal(got.desc[same], ref.desc[same])),
+                  f"{tag}: descriptor rows with bit-equal angles differ")
+    for k, t in tol.items():
+        check(err[k] <= t if t == 0.0 else err[k] < t,
+              f"{tag}: {k} differs by {err[k]} (limit {t})")
+    return err
+
+
+def _held_kernels(run, cfg) -> dict:
+    """Run ``run()`` with K3's and (for ``desc_mode="loop"``) K4's calls
+    of the pipeline held to their plain versions on the same inputs
+    (rows within 1e-5 x the row's max); returns the largest relative
+    differences."""
+    import popsift_tpu_torch.pipeline as P
+    real_o = P._ori.orientation_histograms_octaves
+    real_d = P._desc.compute_descriptors_octaves
+    rel = {"K3": 0.0, "K4": 0.0}
+
+    def ori(blurs, ext, cfg_, row_ends, F=1, plain=False):
+        k = real_o(blurs, ext, cfg_, row_ends, F, plain)
+        rel["K3"] = max(rel["K3"], rel_row_err(
+            k, real_o(blurs, ext, cfg_, row_ends, F, True)))
+        return k
+
+    def desc(blurs, jobs, row_ends, cfg_, plain=False):
+        k = real_d(blurs, jobs, row_ends, cfg_, plain)
+        if cfg_.desc_mode == "loop":
+            rel["K4"] = max(rel["K4"], rel_row_err(
+                k, real_d(blurs, jobs, row_ends, cfg_, True)))
+        return k
+
+    P._ori.orientation_histograms_octaves = ori
+    P._desc.compute_descriptors_octaves = desc
+    try:
+        run()
+    finally:
+        P._ori.orientation_histograms_octaves = real_o
+        P._desc.compute_descriptors_octaves = real_d
+    for name, r in rel.items():
+        check(r <= 1e-5, f"{name} rows differ from the plain version by "
+              f"{r} x row max")
+    return rel
+
+
+def variants_phase(frames: list, dev, reps: int = 5) -> dict:
+    """The extraction variants at 1080p: each configuration of
+    ``VARIANTS`` through ``PopSift.enqueue`` of frame 0 (and
+    ``BATCH_VARIANT`` through ``enqueue_batch`` of the four frames on the
+    window route) with every counter reset just before it, held to the
+    expected launches (:func:`expected_launches`), to the same
+    configuration with ``plain=True`` on the card (:func:`_same_features`)
+    and run again under ``torch.cuda.set_sync_debug_mode("error")``
+    (equal in every field); warm ms/frame, median of ``reps``, beside the
+    default configuration's. Then ``CPU_VARIANT`` on a 480 x 640 crop
+    against the port's CPU run, the plain-torch descriptor variants timed
+    on the bench frame's jobs beside K4, K1 on a textured frame and
+    batches of 2 and 8 frames. Returns the times."""
+    from popsift_tpu_torch.api import PopSift
+    from popsift_tpu_torch.config import SiftConfig
+    from popsift_tpu_torch.ops import descriptors as D
+    from popsift_tpu_torch.ops import extrema as E
+    from popsift_tpu_torch.ops import kernels
+    from popsift_tpu_torch.ops.pyramid import build_pyramid_frames
+    from popsift_tpu_torch.pipeline import build_extract_plan, extract_batch
+
+    out = {}
+
+    def drive(tag, kw, batch=False, detect="fused"):
+        cfg = SiftConfig(extrema_capacity=8192, **kw)
+        fr = frames if batch else frames[:1]
+        plan = build_extract_plan(cfg, *fr[0].shape)
+        ps = PopSift(cfg, device=dev, detect=detect)
+        kernels.reset_launch_counts()
+        jobs = ps.enqueue_batch(fr) if batch else [ps.enqueue(fr[0])]
+        hosts = [j.get() for j in jobs]
+        launches = kernels.launch_counts()
+        want = expected_launches(cfg, plan, detect, batch)
+        check(launches == want, f"{tag}: launches {launches}, expected "
+              f"{want}")
+        uploaded = torch.from_numpy(np.stack(fr)).to(dev)
+
+        def run(plain=False):
+            return extract_batch(uploaded, plan, dev, plain=plain,
+                                 detect=detect)
+
+        got = run()
+        for f, job in enumerate(jobs):
+            for name, a, b in zip(job.raw._fields, job.raw, got):
+                check(bool(torch.equal(a, b[f])), f"{tag}: frame {f}'s "
+                      f"{name} differs between enqueue and extract_batch")
+        err = _same_features(tag, got, run(plain=True), cfg.desc_mode)
+        err.update(_held_kernels(run, cfg))
+        sync(dev)
+        if dev.type == "cuda":      # a CPU rehearsal has no sync mode
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            again = run()
+        finally:
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+        for name, a, b in zip(got._fields, again, got):
+            check(bool(torch.equal(a, b)), f"{tag}: {name} of the run under "
+                  f"sync debug mode differs")
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            run()
+            sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3 / len(fr))
+        ms = statistics.median(times)
+        for h in hosts:
+            for k in ("x", "y", "sigma", "descriptors"):
+                check(bool(np.isfinite(getattr(h, k)).all()),
+                      f"{tag}: non-finite {k}")
+        out[tag] = ms
+        say(f"variant {tag} {kw}{' batch of %d' % len(fr) if batch else ''}"
+            f"{' detect=' + detect if detect != 'fused' else ''}: "
+            f"{[h.getFeatureCount() for h in hosts]} keypoints, "
+            f"{[h.getDescriptorCount() for h in hosts]} descriptors, "
+            f"candidates {jobs[0].raw.octave_candidates.tolist()}, "
+            f"launches as expected "
+            f"{ {k: v for k, v in launches.items() if v} }, 0 syncs, "
+            f"against plain {err}, {ms:.2f} ms/frame (warm median of "
+            f"{reps})")
+        return plan
+
+    drive("default", {})
+    for tag, kw in VARIANTS.items():
+        drive(tag, kw)
+    drive(BATCH_VARIANT[0], BATCH_VARIANT[1], batch=True, detect="windows")
+
+    # one variant on a 480 x 640 crop: the card against the port's CPU run
+    h, w = frames[0].shape
+    y0, x0 = max(0, (h - 480) // 2), max(0, (w - 640) // 2)
+    crop = np.ascontiguousarray(frames[0][y0:y0 + 480, x0:x0 + 640])
+    cfg = SiftConfig(extrema_capacity=1024, **CPU_VARIANT)
+    cplan = build_extract_plan(cfg, *crop.shape)
+    on_card = extract_batch(crop[None], cplan, dev)
+    on_cpu = extract_batch(crop[None], cplan, torch.device("cpu"))
+    err = _same_features("480 x 640 crop, card against CPU",
+                         type(on_cpu)(*(a.cpu() for a in on_card)), on_cpu,
+                         cfg.desc_mode, tol=dict(GOLDEN_TOL))
+    say(f"variant {CPU_VARIANT} on a {crop.shape[0]} x {crop.shape[1]} "
+        f"crop at ({y0}, {x0}): "
+        f"{int(on_cpu.n_keypoints[0])} keypoints, "
+        f"{int(on_cpu.n_descriptors[0])} descriptors on the card and on the "
+        f"CPU, masks and counts exact, largest differences {err}")
+
+    # the plain-torch descriptor variants on the bench frame's jobs, beside
+    # K4 on the same jobs (CUDA events)
+    plan = build_extract_plan(SiftConfig(extrema_capacity=8192),
+                              *frames[0].shape)
+    grab = {}
+    real = D.compute_descriptors_octaves
+
+    def capture(blurs, jobs, row_ends, cfg_, plain=False):
+        grab.update(blurs=blurs, jobs=jobs, row_ends=row_ends)
+        return real(blurs, jobs, row_ends, cfg_, plain)
+
+    D.compute_descriptors_octaves = capture
+    try:
+        extract_batch(frames[0][None], plan, dev)
+    finally:
+        D.compute_descriptors_octaves = real
+    jobs, ends = grab["jobs"], grab["row_ends"]
+    n_valid = int(jobs.valid.sum())
+    base = SiftConfig(extrema_capacity=8192)
+    k4 = median_ms(lambda: real(grab["blurs"], jobs, ends, base), dev, reps)
+    # each valid job's support (as K4's bound counts it) read once, 128
+    # bins written a row; about 90 operations a sample, as K4's pixel
+    sup = (torch.ceil(jobs.sigma[jobs.valid] * (3.0 * 2.5 * 2.0 ** 0.5))
+           + 2).clamp(max=D.loop_patch_radius(base))
+    support_bytes = float(((2 * sup + 3) ** 2).sum()) * 4
+    rows_bytes = int(jobs.valid.numel()) * 128 * 4
+    table = {"loop (K4)": (k4, None)}
+    for mode, samples in (("igrid", 40 * 40), ("grid", 16 * 16 * 16),
+                          ("iloop", 16 * 32 * 32)):
+        cfg_m = base.replace(desc_mode=mode)
+        ms = median_ms(lambda: D.descriptor_variant(grab["blurs"], jobs, ends,
+                                                    cfg_m), dev, 3, 1)
+        table[mode] = (ms, bound_ms(support_bytes + rows_bytes,
+                                    n_valid * samples * 90.0))
+        out[f"desc_{mode}"] = ms
+    say(f"descriptor variants on the bench frame's {int(jobs.x.shape[0])} "
+        f"job rows ({n_valid} valid), ms (CUDA events, median of {reps} "
+        f"for K4, of 3 for the variants) "
+        f"and bound: " + ", ".join(
+            f"{m} {t:.3f}" + (f" (bound {b[0]:.4f} by {b[1]}, "
+                              f"{t / k4:.1f} x K4)" if b else "")
+            for m, (t, b) in table.items()))
+
+    # K1 on a textured 1080p frame against the bench frame
+    k1 = {}
+    cfg = SiftConfig(extrema_capacity=8192)
+    for name, img in (("bench frame", frames[0]),
+                      ("synthetic_image(%d, %d)" % (h, w),
+                       synthetic_image(h, w))):
+        _, dogs = build_pyramid_frames(torch.from_numpy(img[None]).to(dev),
+                                       plan.pyramid)
+        dogs = [d.view(-1, *d.shape[2:]) for d in dogs]
+        masks = E.candidate_masks(dogs, cfg)
+        k1[name] = (median_ms(lambda: E.candidate_masks(dogs, cfg), dev,
+                              reps * 4),
+                    int(sum(int(m.sum()) for m in masks)))
+    say("K1 over all octaves, ms (CUDA events) and candidates: "
+        + ", ".join(f"{n} {t:.4f} ({c})" for n, (t, c) in k1.items()))
+    out.update({f"k1 {n}": t for n, (t, _) in k1.items()})
+
+    # batch sizes other than four
+    import bench
+    many = [bench.make_frame(h, w, seed=s) for s in range(8)]
+    for F in (1, 2, 8):
+        up = torch.from_numpy(np.stack(many[:F])).to(dev)
+        res = extract_batch(up, plan, dev)
+        check(int(res.n_keypoints[0]) == BENCH_KEYPOINTS
+              and int(res.n_descriptors[0]) == BENCH_DESCRIPTORS,
+              f"batch of {F}: frame 0 gave {int(res.n_keypoints[0])} / "
+              f"{int(res.n_descriptors[0])}")
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            extract_batch(up, plan, dev)
+            sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3 / F)
+        out[f"batch {F}"] = statistics.median(times)
+    say("extract_batch ms/frame by batch size (warm median of 3, host "
+        "clock, ends in synchronize): " + ", ".join(
+            f"F={F} {out[f'batch {F}']:.2f}" for F in (1, 2, 8)))
+    say("phase 8 ms/frame (warm median of %d): %s" % (reps, json.dumps(
+        {k: round(v, 3) for k, v in out.items()})))
+    return out
+
+
 def profile_phase(frame: np.ndarray, dev, out_dir: str) -> None:
     """A torch.profiler table of one run of the main path, of the window
     route and of the chain front, written to DIR/profile*.txt."""
@@ -1759,6 +2112,8 @@ def main(argv=None) -> int:
     runs.update(routes_phase(frames, dev))
     say("phase 7: match path")
     match_phase(frames, dev, launches)
+    say("phase 8: variants")
+    variants_phase(frames, dev)
     for r in rows:
         r["launches"] = runs[LAUNCHES_FROM[r["name"]]][r["name"]]
         check(r["launches"] > 0, f"{r['name']} was launched no time in the "

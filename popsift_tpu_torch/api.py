@@ -43,6 +43,20 @@ class Feature:
     orientations: np.ndarray   # [num_ori]
     descriptors: np.ndarray    # [num_ori, 128]
 
+    def print(self, stream, write_as_uchar: bool = False):
+        """Reference text format: ``x y 1/s^2 0 1/s^2 d0..d127`` per
+        orientation (Feature::print, features.cu:308-328), character for
+        character as popsift_tpu.api.Feature.print."""
+        sigval = 1.0 / (self.sigma * self.sigma)
+        for o in range(self.num_ori):
+            stream.write(f"{self.x} {self.y} {sigval} 0 {sigval} ")
+            d = self.descriptors[o]
+            if write_as_uchar:
+                stream.write(" ".join(str(int(round(v))) for v in d))
+            else:
+                stream.write(" ".join(f"{v:.3g}" for v in d))
+            stream.write(" \n")
+
 
 class FeaturesHost:
     """Compacted host-side result (FeaturesHost, features.h:65-98):
@@ -88,6 +102,11 @@ class FeaturesHost:
                 orientations=self.orientations[i][self.ori_valid[i]][:n],
                 descriptors=self.descriptors[rows] if n else
                 np.zeros((0, 128), np.float32))
+
+    def print(self, stream, write_as_uchar: bool = False):
+        """Every feature's :meth:`Feature.print` lines, in keypoint order."""
+        for f in self.features():
+            f.print(stream, write_as_uchar)
 
     def save(self, path: str, write_as_uchar: bool = False):
         """Write the reference text format (features.cu:308-328), one line
@@ -270,3 +289,21 @@ class PopSift:
     def uninit(self):
         with self._lock:
             self._plans.clear()
+
+    # Deprecated blocking API (PopSift::init/execute, popsift.h:122-139),
+    # kept for callers from before the job pipeline.
+
+    def init(self, w: int, h: int) -> bool:
+        """Deprecated: plan for a w x h image (popsift.h:122-131). The job
+        API plans on the first ``enqueue``; this makes that plan now."""
+        warnings.warn("PopSift.init is deprecated; use enqueue()",
+                      DeprecationWarning, stacklevel=2)
+        self._plan_for(h, w)
+        return True
+
+    def execute(self, image):
+        """Deprecated blocking extraction (popsift.h:133-139): ``enqueue``
+        and ``get`` in one call."""
+        warnings.warn("PopSift.execute is deprecated; use enqueue()",
+                      DeprecationWarning, stacklevel=2)
+        return self.enqueue(image).get()

@@ -1,43 +1,56 @@
-"""Gaussian scale-space pyramid in PyTorch (default path).
+"""Gaussian scale-space pyramid in PyTorch, every strategy of the config.
 
 Port of :mod:`popsift_tpu.ops.pyramid`. Each octave is a dense
 ``f32[L, H, W]`` stack of blur levels and an ``f32[L-1, H, W]`` stack of
 DoG layers, stored in 0..255 scale:
 
-* octave 0 level 0 comes straight from the input through the polyphase
-  form of (2x upsample -> dd[0] horizontal -> inc[0] vertical);
+* octave 0 level 0 comes straight from the input: for the default 2x
+  upscale with shift 1 through the polyphase form of (2x upsample ->
+  dd[0] horizontal -> inc[0] vertical), for any other upscale or shift
+  (``sift_mode="opencv"``, ``upscale_factor=0``) by resampling the rows
+  and columns at the reference's sample positions and filtering them;
 * levels 1..L-1 by incremental separable blur with edge-replicated
   borders, each with its DoG, DoG[l-1] = blur[l] - blur[l-1], in one
   call of kernel K5 (ops/kernels/blur_dog.py) per level for all frames,
   and for the thin octaves (a plane of at most 4096 pixels, 34 x 60 and
-  smaller at 1080p) in ONE call for all their levels (``front="level"``, the default), or in one call of kernel K7
-  (ops/kernels/blur_chain.py) per group of three levels
-  (``front="chain"``, the JAX package's ``use_pallas="chain"``); both
-  give the same planes bit for bit;
+  smaller at 1080p) in ONE call for all their levels (``front="level"``,
+  the default), or in one call of kernel K7 (ops/kernels/blur_chain.py)
+  per group of three levels (``front="chain"``, the JAX package's
+  ``use_pallas="chain"``); both give the same planes bit for bit;
 * octave o>0 level 0 picks every second pixel of level L-3 of the
-  previous octave: K5's launch for that level writes it as a second
-  output (the chain front and the plain versions copy the slice).
+  previous octave (``downscale_mode="pick"``): K5's launch for that level
+  writes it as a second output (the chain front and the plain versions
+  copy the slice). ``downscale_mode="interpolate"`` takes the odd pixels
+  instead, ``scaling_mode="direct"`` builds it from the input with the
+  octave's dd filter.
+
+The other Gauss modes blur from level 0 rather than from the level
+before: ``vlfeat-relative-all`` every level of every octave with the
+absolute filters, ``fixed9`` / ``fixed15`` every level of octave 0 from
+the input with ``abs_o0`` on both axes (plain torch, like the default
+octave-0 level) and levels 1..5 of the later octaves from level 0 with
+``abs_oN``. Those blurs run K5 with level 0 as the source and one torch
+subtraction takes the DoG layers, since K5's DoG is the blur minus its
+source. Only an incremental pick-every-second pyramid from the previous
+octave (the default strategy) has the thin entry, which picks the next
+octave from a level it writes.
 
 The blurs are the JAX package's shift-and-add stencils with the same
 terms in the same order: in K5, or in its plain version (plain f32
 tensor ops) on the CPU and with ``plain=True``. Deliberately not
 ``F.conv2d``: cuDNN runs f32 convolutions in TF32 by default, three
 decimal digits that the DoG threshold cannot afford (the JAX code
-avoided MXU convolutions for the same reason). Level 0 (the polyphase
-upscale, the decimation) is plain torch, as it was XLA in JAX.
+avoided MXU convolutions for the same reason). Level 0 (the resampling,
+the decimation) is plain torch, as it was XLA in JAX.
 
 :func:`build_pyramid_frames` builds F same-sized frames at once, each
 octave as f32[F, L, H, W] and f32[F, L-1, H, W]; :func:`build_pyramid`
 is its one-frame form.
-
-The non-default strategies (direct scaling, fixed9/fixed15,
-vlfeat-relative-all, interpolated downscale) raise NotImplementedError;
-they are ROADMAP item A9.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -46,12 +59,14 @@ from ..config import SiftConfig
 from ..gauss import GaussTables, build_gauss_tables, full_kernel
 from ..utils.f32 import div
 from .kernels.blur_chain import blur_chain, blur_chain_torch
-from .kernels.blur_dog import (THIN_MAX_OCTAVES, _pad_edge, blur_dog,
-                               blur_dog_thin, blur_dog_thin_torch,
+from .kernels.blur_dog import (THIN_MAX_OCTAVES, _conv1d_valid, _pad_edge,
+                               blur_dog, blur_dog_thin, blur_dog_thin_torch,
                                blur_dog_torch, pick_every_second, thin_fits)
 
 FRONTS = ("level", "chain")
 CHAIN_GROUP = 3    # levels fused per K7 launch, as the JAX front's group=3
+# Gauss modes whose levels 1..L-1 are blurred from level 0
+FROM_LEVEL0 = ("fixed9", "fixed15", "vlfeat-relative-all")
 
 
 @dataclass(frozen=True)
@@ -69,6 +84,9 @@ class PyramidPlan:
     lvl0_kernel_x: np.ndarray  # dd[0] full kernel (horizontal from input)
     lvl0_kernel_y: np.ndarray  # inc[0] full kernel (vertical from interm)
     abs0_kernels: tuple = ()   # input -> octave-0 levelN (fixed modes)
+    # per (name, device): resampling constants, made once (_plan_tensor)
+    _constants: dict = field(default_factory=dict, init=False,
+                             compare=False, repr=False)
 
 
 def build_pyramid_plan(config: SiftConfig, height: int, width: int,
@@ -153,19 +171,80 @@ def _conv1d_asym(x: torch.Tensor, taps: np.ndarray, qmin: int, pad: int,
     return out
 
 
-def _octave0_level0(img: torch.Tensor, plan: PyramidPlan) -> torch.Tensor:
-    """Octave-0 level 0 from the input for the default 2x upscale: four
-    quarter-resolution phase planes convolved on the source image and
-    interleaved into [2H, 2W]."""
+def _plan_tensor(plan: PyramidPlan, name: str, dev: torch.device,
+                 make) -> torch.Tensor:
+    """The plan's constant tensor ``name`` on ``dev``, from the numpy
+    array ``make()``, copied to the device once and kept on the plan (a
+    host-to-device copy waits for the stream)."""
+    key = (name, dev)
+    if key not in plan._constants:
+        plan._constants[key] = torch.as_tensor(make(), device=dev)
+    return plan._constants[key]
+
+
+def _lerp_rows(img: torch.Tensor, pos: np.ndarray, dim: int,
+               plan: PyramidPlan, name: str) -> torch.Tensor:
+    """Resample ``dim`` of ``img`` at the static numpy positions ``pos``
+    with clamp-to-edge, as popsift_tpu.ops.pyramid._lerp_rows: indices
+    and weights in numpy, ``a * (1 - f) + b * f`` on the device."""
+    n = img.shape[dim]
+    p = np.clip(pos, 0.0, n - 1.0)
+    i0 = np.floor(p).astype(np.int64)
+    i1 = np.minimum(i0 + 1, n - 1)
+    f = (p - i0).astype(np.float32)
+    shape = [1] * img.dim()
+    shape[dim] = -1
+    # the positions are an arithmetic run: its ends, length and the
+    # axis's size name it
+    key = f"{name}:{n}:{pos.size}:{pos[0]!r}:{pos[-1]!r}"
+    t = lambda tag, a: _plan_tensor(plan, f"{key}.{tag}", img.device,
+                                    lambda: a)
+    w1 = t("f", f).view(shape)
+    w0 = t("1-f", np.float32(1.0) - f).view(shape)
+    return (img.index_select(dim, t("i0", i0)) * w0
+            + img.index_select(dim, t("i1", i1)) * w1)
+
+
+def _resample_filter(img: torch.Tensor, plan: PyramidPlan, oh: int, ow: int,
+                     kx: np.ndarray, ky: np.ndarray, name: str
+                     ) -> torch.Tensor:
+    """The generic octave-level build from the input
+    (popsift_tpu.ops.pyramid._octave0_level0's non-polyphase branch and
+    _octave_lvl0_from_input): rows resampled at (y + shift) * (src/dst)
+    - 0.5, columns at the same positions over an extended range, a
+    valid horizontal pass with ``kx`` (x 255), then edge-replicated rows
+    and a valid vertical pass with ``ky``."""
+    sh, sw = plan.in_h, plan.in_w
+    src = _input_as_float(img)
+    pad = (kx.shape[0] - 1) // 2
+    ys = (np.arange(oh, dtype=np.float64) + plan.shift0) * (sh / oh) - 0.5
+    xs = (np.arange(-pad, ow + pad, dtype=np.float64)
+          + plan.shift0) * (sw / ow) - 0.5
+    r = _lerp_rows(src, ys, -2, plan, f"{name}.rows")       # [oh, sw]
+    r = _lerp_rows(r, xs, -1, plan, f"{name}.cols")         # [oh, ow + 2pad]
+    out = _conv1d_valid(r, kx, -1) * 255.0
+    pady = (ky.shape[0] - 1) // 2
+    return _conv1d_valid(_pad_edge(out, pady, -2), ky, -2)
+
+
+def _octave0_level0(img: torch.Tensor, plan: PyramidPlan,
+                    kx: np.ndarray | None = None,
+                    ky: np.ndarray | None = None) -> torch.Tensor:
+    """An octave-0 level from the input, ``kx`` horizontally (default
+    dd[0]) and ``ky`` vertically (default inc[0]); the fixed modes give
+    ``abs_o0[level]`` for both. For the default 2x upscale with shift 1:
+    four quarter-resolution phase planes convolved on the source image
+    and interleaved into [2H, 2W]; otherwise the resampling of
+    :func:`_resample_filter`."""
     oh, ow = plan.dims[0]
+    kx = plan.lvl0_kernel_x if kx is None else kx
+    ky = plan.lvl0_kernel_y if ky is None else ky
     if not (oh == 2 * plan.in_h and ow == 2 * plan.in_w
             and plan.shift0 == 1.0):
-        raise NotImplementedError(
-            "octave-0 resampling other than the default 2x upscale "
-            "(ROADMAP A9)")
+        return _resample_filter(img, plan, oh, ow, kx, ky, "o0")
     src = _input_as_float(img)
-    kxp = _phase_kernels(plan.lvl0_kernel_x * 255.0)
-    kyp = _phase_kernels(plan.lvl0_kernel_y)
+    kxp = _phase_kernels(kx * 255.0)
+    kyp = _phase_kernels(ky)
     px_pad = max(max(abs(q), abs(q + t.shape[0] - 1)) for t, q in kxp)
     py_pad = max(max(abs(q), abs(q + t.shape[0] - 1)) for t, q in kyp)
     srcp = _pad_edge(_pad_edge(src, py_pad, 0), px_pad, 1)
@@ -180,14 +259,48 @@ def _octave0_level0(img: torch.Tensor, plan: PyramidPlan) -> torch.Tensor:
     return out.reshape(oh, ow)
 
 
+def _octave_lvl0_from_input(img: torch.Tensor, plan: PyramidPlan,
+                            octv: int) -> torch.Tensor:
+    """Direct scaling (``scaling_mode="direct"``): level 0 of octave
+    ``octv`` built from the input with the octave's dd filter
+    horizontally and inc[0] vertically
+    (popsift_tpu.ops.pyramid._octave_lvl0_from_input)."""
+    oh, ow = plan.dims[octv]
+    return _resample_filter(img, plan, oh, ow, plan.dd_kernels[octv],
+                            plan.lvl0_kernel_y, f"o{octv}")
+
+
+def _decimate2_interpolate(x: torch.Tensor, oh: int, ow: int
+                           ) -> torch.Tensor:
+    """get_by_2_interpolate of [..., H, W]: the odd rows and columns,
+    the last one repeated where an odd-sized source has too few
+    (popsift_tpu.ops.pyramid._decimate2_interpolate)."""
+    r = x[..., 1::2, :]
+    if r.shape[-2] < oh:
+        r = torch.cat([r, x[..., -1:, :]], dim=-2)
+    c = r[..., 1::2]
+    if c.shape[-1] < ow:
+        c = torch.cat([c, r[..., -1:]], dim=-1)
+    return c
+
+
+def _thin_allowed(cfg: SiftConfig) -> bool:
+    """Whether the octaves blur incrementally and each picks its level 0
+    from the previous one: the strategy K5's thin entry computes."""
+    return (cfg.scaling_mode == "indirect" and cfg.downscale_mode == "pick"
+            and cfg.gauss_mode not in FROM_LEVEL0)
+
+
 def first_thin_octave(plan: PyramidPlan, front: str = "level") -> int:
     """Index of the first octave whose levels go through K5's one-launch
     thin entry (every later octave does too); ``len(plan.dims)`` if none
-    does: only the level front has the entry, and it picks the next
-    octave from a level it writes."""
+    does: only the level front of the incremental pick-every-second
+    strategy has the entry, which picks the next octave from a level it
+    writes."""
     n_oct = len(plan.dims)
     first = n_oct
-    if front == "level" and plan.config.total_levels - 3 >= 1:
+    if (front == "level" and plan.config.total_levels - 3 >= 1
+            and _thin_allowed(plan.config)):
         while first > 0 and n_oct - first < THIN_MAX_OCTAVES and thin_fits(
                 *plan.dims[first - 1], plan.inc_kernels[1:]):
             first -= 1
@@ -201,19 +314,13 @@ def build_pyramid_frames(imgs: torch.Tensor, plan: PyramidPlan,
     f32[F, L, H, W] and f32[F, L-1, H, W] on the images' device. With
     ``front="level"`` each level runs K5 once for all F frames and the
     thin octaves run all their levels in one K5 launch, with
-    ``front="chain"`` each group of three levels runs K7 once (their
-    plain versions with ``plain``)."""
+    ``front="chain"`` each group of three levels of an incremental mode
+    runs K7 once (their plain versions with ``plain``); the modes that
+    blur from level 0 run K5 per level on both fronts, as the JAX
+    package runs no chain for them."""
     cfg = plan.config
     if front not in FRONTS:
         raise ValueError(f"front must be one of {FRONTS}, got {front!r}")
-    if cfg.scaling_mode == "direct":
-        raise NotImplementedError("direct scaling (ROADMAP A9)")
-    if cfg.gauss_mode in ("fixed9", "fixed15", "vlfeat-relative-all"):
-        raise NotImplementedError(
-            f"gauss mode {cfg.gauss_mode!r} (ROADMAP A9)")
-    if cfg.downscale_mode != "pick":
-        raise NotImplementedError(
-            f"downscale mode {cfg.downscale_mode!r} (ROADMAP A9)")
     blur_level = blur_dog_torch if plain else blur_dog
     chain = blur_chain_torch if plain else blur_chain
     F = imgs.shape[0]
@@ -223,17 +330,43 @@ def build_pyramid_frames(imgs: torch.Tensor, plan: PyramidPlan,
              for oh, ow in plan.dims]
     dogs = [torch.empty((F, total - 1, oh, ow), dtype=torch.float32,
                         device=dev) for oh, ow in plan.dims]
-    src_lvl = total - 3     # the level the next octave is picked from
+    src_lvl = total - 3     # the level the next octave is made from
     n_oct = len(blurs)
+    fixed = cfg.gauss_mode in ("fixed9", "fixed15")
+    from_level0 = cfg.gauss_mode in FROM_LEVEL0
+    picks = cfg.scaling_mode == "indirect" and cfg.downscale_mode == "pick"
     first_thin = first_thin_octave(plan, front)
     for octv, (levels, dog) in enumerate(zip(blurs, dogs)):
-        if octv == 0:
+        oh, ow = plan.dims[octv]
+        if octv == 0 and fixed:
+            # every octave-0 level from the input, abs_o0 on both axes
+            for f in range(F):
+                for lvl in range(total):
+                    k = plan.abs0_kernels[lvl]
+                    levels[f, lvl] = _octave0_level0(imgs[f], plan, k, k)
+        elif octv == 0:
             for f in range(F):
                 levels[f, 0] = _octave0_level0(imgs[f], plan)
+        elif cfg.scaling_mode == "direct":
+            for f in range(F):
+                levels[f, 0] = _octave_lvl0_from_input(imgs[f], plan, octv)
+        elif not picks:
+            levels[:, 0] = _decimate2_interpolate(
+                blurs[octv - 1][:, src_lvl], oh, ow)
         if octv >= first_thin:
             break
-        nxt = blurs[octv + 1][:, 0] if octv + 1 < n_oct else None
-        if front == "chain":
+        nxt = blurs[octv + 1][:, 0] if picks and octv + 1 < n_oct else None
+        picked = False       # whether a K5 launch wrote nxt
+        if octv == 0 and fixed:
+            torch.sub(levels[:, 1:], levels[:, :-1], out=dog)
+        elif from_level0:
+            for lvl in range(1, total):
+                blur_level(levels[:, 0], plan.absN_kernels[lvl],
+                           out=(levels[:, lvl], dog[:, lvl - 1]),
+                           pick=nxt if lvl == src_lvl else None)
+            torch.sub(levels[:, 1:], levels[:, :-1], out=dog)
+            picked = src_lvl >= 1
+        elif front == "chain":
             for l0 in range(1, total, CHAIN_GROUP):
                 l1 = min(total, l0 + CHAIN_GROUP)
                 chain(levels[:, l0 - 1], plan.inc_kernels[l0:l1],
@@ -243,7 +376,8 @@ def build_pyramid_frames(imgs: torch.Tensor, plan: PyramidPlan,
                 blur_level(levels[:, lvl - 1], plan.inc_kernels[lvl],
                            out=(levels[:, lvl], dog[:, lvl - 1]),
                            pick=nxt if lvl == src_lvl else None)
-        if nxt is not None and (front == "chain" or src_lvl < 1):
+            picked = src_lvl >= 1
+        if nxt is not None and not picked:
             # pick every second pixel (get_by_2_pick_every_second)
             nxt.copy_(pick_every_second(levels[:, src_lvl],
                                         *nxt.shape[-2:]))

@@ -6,9 +6,12 @@ branch of ``extract`` (pipeline.py:237-406) and of ``extract_batch``
 stacks back to back on the layer axis ([F*L, H, W] and [F*(L-1), H, W]),
 then for all octaves and frames at once: the candidate masks (K1), the
 compaction (the compaction kernel), the refinement (K2), ONE accept test,
-the orientation histograms (K3), one orientation tail, one segmented job
-build, the descriptors (K4), normalisation and the output tail (octave
-scaling, descriptor -> keypoint map). K3 and K4 address frame f's level
+the grid filter of each frame (when ``filter_max_extrema > 0``), the
+orientation histograms (K3), one orientation tail, one segmented job
+build, the descriptors (K4 for ``desc_mode="loop"``, plain torch for the
+other variants), normalisation and the output tail (octave scaling,
+descriptor -> keypoint map). Every ``SiftConfig`` the JAX package accepts
+runs, on both routes and both fronts. K3 and K4 address frame f's level
 l as layer f*L + l.
 
 No count comes back to the host: the compaction writes the candidate
@@ -44,6 +47,7 @@ from .config import SiftConfig
 from .ops import descriptors as _desc
 from .ops import extrema as _ext
 from .ops import orientation as _ori
+from .ops.gridfilter import maybe_grid_filter
 from .ops.pyramid import (PyramidPlan, build_pyramid, build_pyramid_frames,
                           build_pyramid_plan)
 from .utils.device import resolve_device
@@ -107,14 +111,10 @@ def build_extract_plan(config: SiftConfig, height: int, width: int,
 DETECT_ROUTES = ("fused", "windows")
 
 
-def _check_supported(cfg: SiftConfig, detect: str = "fused") -> None:
+def _check_route(detect: str) -> None:
     if detect not in DETECT_ROUTES:
         raise ValueError(f"detect must be one of {DETECT_ROUTES}, "
                          f"got {detect!r}")
-    if cfg.filter_max_extrema > 0:
-        raise NotImplementedError("grid filter (ROADMAP A4)")
-    if cfg.desc_mode != "loop":
-        raise NotImplementedError(f"desc_mode {cfg.desc_mode!r} (ROADMAP A9)")
 
 
 class _Constants(NamedTuple):
@@ -200,7 +200,7 @@ def extract_batch(imgs, plan: ExtractPlan, device, *, plain: bool = False,
     ``extract`` of that frame. ``plain``, ``detect`` and ``front`` as in
     :func:`extract`."""
     cfg = plan.config
-    _check_supported(cfg, detect)
+    _check_route(detect)
     dev = resolve_device(device)
     imgs = _frames_tensor(imgs, dev)
     if imgs.dim() != 3 or tuple(imgs.shape[1:]) != (plan.height, plan.width):
@@ -236,6 +236,14 @@ def extract_batch(imgs, plan: ExtractPlan, device, *, plain: bool = False,
     g = _ext.finalize_refined(state, valid_rows, cfg, const.w_row,
                               const.h_row, rows.n_found.sum(),
                               rows.n_dropped.sum())
+    if cfg.filter_max_extrema > 0:
+        # the grid budget of each frame over the rows of all its octaves,
+        # sigma in input-image units (pipeline.py:279-288), before the
+        # orientation stage (s_orientation.cu:353-367)
+        keep = maybe_grid_filter(g.cell.view(F, Ktot),
+                                 (g.sigma * const.scale).view(F, Ktot),
+                                 g.valid.view(F, Ktot), cfg)
+        g = g._replace(valid=keep.view(-1), count=keep.sum())
 
     # orientation: one K3 launch over the frame-major rows of all frames
     # and octaves; the kernel takes frame f's level l as layer f*L + l of

@@ -107,7 +107,13 @@ def test_normalisation_matches_jax(norm_mode, mult):
 
 
 def test_other_descriptor_modes_raise():
-    cfg = port_config(SiftConfig(desc_mode="igrid"))
-    jobs = tdesc.DescriptorJobs(*(torch.zeros(1) for _ in range(7)), count=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tdesc.compute_descriptors(torch.zeros((6, 8, 8)), jobs, cfg)
+    """The modes the port once refused now run; a job that is not valid
+    gives a zero row."""
+    jobs = tdesc.DescriptorJobs(
+        *(torch.zeros(1) for _ in range(3)), torch.zeros(1, dtype=torch.long),
+        torch.zeros(1), torch.zeros(1, dtype=torch.long),
+        torch.zeros(1, dtype=torch.bool), count=torch.tensor(0))
+    for mode in ("igrid", "notile", "grid", "iloop"):
+        cfg = port_config(SiftConfig(desc_mode=mode))
+        out = tdesc.compute_descriptors(torch.ones((6, 8, 8)), jobs, cfg)
+        assert out.shape == (1, 128) and not out.any(), mode

@@ -76,6 +76,12 @@ def test_cuda_without_a_card_raises(pgm_pairs):
 @pytest.mark.parametrize("flag", [["--desc-mode", "grid"],
                                   ["--gauss-mode", "fixed9"]],
                          ids=["desc_mode", "gauss_mode"])
-def test_unported_variants_raise(pgm_pairs, flag):
-    with pytest.raises(NotImplementedError, match="A9"):
-        port_match(pgm_pairs["small"] + ["--device", "cpu"] + flag)
+def test_unported_variants_raise(pgm_pairs, flag, capsys):
+    """The variants the port once refused now run: the same head lines as
+    the JAX CLI with the same flag."""
+    port = _run(port_match, pgm_pairs["small"] + ["--device", "cpu"] + flag,
+                capsys)
+    want = _run(jax_match, pgm_pairs["small"] + flag, capsys)
+    head = [l for l in port if l.startswith(HEAD)]
+    assert head == [l for l in want if l.startswith(HEAD)]
+    assert len(head) == 3 and int(head[2].split(": ")[1]) > 0

@@ -1,7 +1,8 @@
 """popsift_tpu_torch end to end against the JAX package on the CPU.
 
 The two main-path golden scenes (scripts/make_golden.py:28-55) run
-through the port's ``PopSift(cfg, device="cpu")``: counts equal JAX
+through the port's ``PopSift(cfg, device="cpu")`` (the three variant
+scenes in tests/test_torch_golden_variants.py): counts equal JAX
 ``PopSift`` exactly, features sit within the golden tolerances
 (tests/test_golden.py:21-24) of both JAX and the oracle fixtures. Also:
 the text writer, the explicit-device rule, the launch counters on the

@@ -82,8 +82,15 @@ def test_float_input_matches_jax():
                                 dict(downscale_mode="interpolate"),
                                 dict(gauss_mode="vlfeat-relative-all")])
 def test_non_default_strategies_raise(kw):
+    """The strategies the port once refused now build JAX's pyramid
+    (within 1e-4 on the 0..255 scale)."""
     cfg = SiftConfig(octaves=2, **kw)
-    img = torch.zeros((32, 40), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tpyr.build_pyramid(img, tpyr.build_pyramid_plan(port_config(cfg), 32,
-                                                     40))
+    img = synthetic_image(32, 40, seed=2)
+    jplan = jpyr.build_pyramid_plan(cfg, 32, 40)
+    jb, jd = jax.jit(lambda x: jpyr.build_pyramid(x, jplan))(img)
+    tb, td = tpyr.build_pyramid(torch.from_numpy(img),
+                                tpyr.build_pyramid_plan(port_config(cfg), 32,
+                                                        40))
+    for a, b in zip(tb + td, jb + jd):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=1e-4)
