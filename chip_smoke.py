@@ -28,8 +28,9 @@ any failed phase raises and the script exits non-zero:
    window copy K6 and its batched entry, exact; K5's one launch over the
    thin octaves (34 x 60 and smaller) bit-equal to its plain version and
    to the planes of the level launches; the chain front K7 on every
-   octave against K5's planes (bit-equal, or within 1e-4 with the
-   difference printed); K4's one launch over all octaves bit-equal to
+   octave, with its pick of level L-3 into the next octave's level 0,
+   bit-equal to K5's planes and to its plain version, on the frame and
+   on the four frames; K4's one launch over all octaves bit-equal to
    its single-octave launches and to a second run; the patch entry of K4
    on the densest octave's real jobs against its plain version and
    against K4, and the bucketed launches of K3 and K4 against the single
@@ -70,13 +71,19 @@ any failed phase raises and the script exits non-zero:
    ``.enqueue_batch`` (2110 / 2505 on frame 0, nothing dropped, K6 once
    per octave and K2 not at all, K1, the compaction, K3 and K4 once a
    run, every frame equal to its ``detect="fused"`` result);
-   ``front="chain"`` the same way (K7 launched, K5 not); the entries that
+   ``front="chain"`` the same way (K7 launched for every group of the
+   wide octaves, K5's thin entry once, K5's level launches not); the
+   entries that
    no extraction path calls (the patch entry of K4, the bucketed
    launches of K3 and K4 with their single-octave entries beneath them,
    the single-octave and batched entries of K1 and of K2, the latter
    held bit-equal to K2's all-octave launch) driven once on the densest
    octave's rows; warm ms/frame of each route, interleaved with the
-   default route;
+   default route; one profiler pass of the level and the chain front in
+   turns (level, chain, chain, level), single frame and four frames:
+   launch calls, device ops, device busy time, the port's kernels'
+   device time, and from it K3's and K4's device time for four times the
+   jobs (whether they are bound by latency);
 7. the match path: ``PopSift(cfg, mode="matching", device="cuda")``
    ``.enqueue`` of frame 0 and of its (3, 5) roll with the counters reset
    just before them (every kernel of the main path twice its phase-4
@@ -160,8 +167,8 @@ WINDOW_PATH = ("blur_dog", "blur_dog_thin", "extrema_mask_octaves",
 WINDOW_BATCH_PATH = ("blur_dog", "blur_dog_thin", "extrema_mask_octaves",
                      "compact", "extract_windows_batched",
                      "orientation_hist_octaves", "descriptor_loop_octaves")
-CHAIN_PATH = ("blur_chain", "extrema_mask_octaves", "compact",
-              "refine_octaves", "orientation_hist_octaves",
+CHAIN_PATH = ("blur_chain", "blur_dog_thin", "extrema_mask_octaves",
+              "compact", "refine_octaves", "orientation_hist_octaves",
               "descriptor_loop_octaves")
 # the single-octave K3 and K4 entries run beneath the bucketed ones
 OFF_PATH = ("descriptor_loop_patches", "orientation_hist_bucketed",
@@ -444,26 +451,58 @@ def kernels_phase(frames: list, dev, reps: int = 20) -> list:
     del tb, td, pb, pd
 
     # K7 chain front: every octave's levels 1..L-1 from level 0 in groups
-    # of three, against the planes K5 wrote into the pyramid
+    # of three, the launch of level L-3 also writing the next octave's
+    # level 0 (the pick), against the planes K5 wrote into the pyramid and
+    # against its plain version, exactly
     G = pyr_mod.CHAIN_GROUP
     kern = list(plan.pyramid.inc_kernels[1:])
-    err = 0.0
-    for o in range(nO):
-        cb, cd = blur_chain.blur_chain(blurs[o][0:1], kern, G)
-        sync(dev)
-        err = max(err, float((cb[0] - blurs[o][1:]).abs().max()),
-                  float((cd[0] - dogs[o]).abs().max()))
-    check(err <= 1e-4, f"K7 levels differ from K5's by {err} (limit 1e-4)")
-    say(f"K7 {'bit-equal to' if err == 0 else f'within {err:.3g} of'} K5's "
-        f"planes on all {nO} octaves (groups of {G})")
+    pick_lvl = src_lvl - 1         # index of level L-3 among levels 1..L-1
+
+    def chain_check(levels_, dogs_, tag):
+        """K7 and its plain version on every octave of [N, L, H, W] level
+        stacks: both equal to the stacks (K5's planes) and to the next
+        octave's level 0, bit for bit. Returns the calls' arguments."""
+        cargs = []
+        for o in range(nO):
+            pk = (torch.full_like(levels_[o + 1][:, 0], -1.0)
+                  if o + 1 < nO else None)
+            cargs.append((levels_[o][:, 0], kern, G, None, pk, pick_lvl))
+            got = blur_chain.blur_chain(*cargs[-1])
+            ppk = None if pk is None else torch.full_like(pk, -2.0)
+            want = blur_chain.blur_chain_torch(levels_[o][:, 0], kern,
+                                               pick=ppk, pick_level=pick_lvl)
+            sync(dev)
+            bad = [n for n, a, b in (
+                ("levels", got[0], levels_[o][:, 1:]),
+                ("DoGs", got[1], dogs_[o]),
+                ("plain levels", want[0], got[0]),
+                ("plain DoGs", want[1], got[1]),
+                ("pick", pk, None if pk is None else levels_[o + 1][:, 0]),
+                ("plain pick", ppk, pk)) if not (a is b or torch.equal(a, b))]
+            check(not bad, f"K7 on octave {o} of {tag} differs from K5's "
+                  f"planes or its plain version: {bad}")
+        say(f"K7 bit-equal to K5's planes and to its plain version on all "
+            f"{nO} octaves of {tag} (groups of {G}), its {nO - 1} picks "
+            f"equal to the next octaves' level 0")
+        return cargs
+
+    cargs = chain_check([b[None] for b in blurs], [d[None] for d in dogs],
+                        "frame 0")
+    k7_dev = profile_counts(lambda: [blur_chain.blur_chain(*a)
+                                     for a in cargs], dev)["ours_ms"]
+    say(f"K7 over all {nO} octaves, device ms of one profiler pass: "
+        f"{k7_dev}")
     n_groups = [min(G, len(kern) - g0) for g0 in range(0, len(kern), G)]
-    row(blur_chain.NAME, err,
-        median_ms(lambda: [blur_chain.blur_chain(blurs[o][0:1], kern, G)
-                           for o in range(nO)], dev, reps),
-        median_ms(lambda: [blur_chain.blur_chain_torch(blurs[o][0:1], kern)
-                           for o in range(nO)], dev, reps),
-        bound_ms(sum((4 + 8 * n) * p for p in px for n in n_groups),
+    row(blur_chain.NAME, 0.0,
+        median_ms(lambda: [blur_chain.blur_chain(*a) for a in cargs], dev,
+                  reps),
+        median_ms(lambda: [blur_chain.blur_chain_torch(
+            a[0], kern, pick=a[4], pick_level=pick_lvl) for a in cargs], dev,
+            reps),
+        bound_ms(sum((4 + 8 * n) * p for p in px for n in n_groups)
+                 + sum(4 * a[4].numel() for a in cargs if a[4] is not None),
                  blur_ops), conv_ms)
+    del cargs
 
     # K1 mask: Z + 2 f32 layers read, Z u8 layers written; 26 comparisons,
     # the contrast gate and their combination for each of Z layers' pixels
@@ -571,6 +610,9 @@ def kernels_phase(frames: list, dev, reps: int = 20) -> list:
         f"octaves of frame 0 (counts {nf}) and on the capacities "
         f"{list(sat_caps)} (counts {sat[3][0].tolist()}, dropped "
         f"{sat[4][0].tolist()}), padding rows included")
+    c_dev = profile_counts(lambda: compact.compact_octaves(masks, caps, pin),
+                           dev)["ours_ms"]
+    say(f"compaction of frame 0, device ms of one profiler pass: {c_dev}")
     row(compact.NAME, 0.0,
         median_ms(lambda: compact.compact_octaves(masks, caps, pin), dev,
                   reps),
@@ -819,8 +861,14 @@ def kernels_phase(frames: list, dev, reps: int = 20) -> list:
     # layer axis), one launch per octave each
     F = len(frames)
     what = f"per batch of {F} frames (all {nO} octaves)"
-    _, bdogs = build_pyramid_frames(
+    bblurs, bdogs = build_pyramid_frames(
         torch.from_numpy(np.stack(frames)).to(dev), plan.pyramid)
+    # K7 on the four frames, one call an octave, against the batch's planes
+    cargs = chain_check(bblurs, bdogs, f"the {F}-frame batch")
+    k7_ms = median_ms(lambda: [blur_chain.blur_chain(*a) for a in cargs],
+                      dev, reps)
+    say(f"K7 on the {F}-frame batch: {k7_ms:.4f} ms a batch")
+    del cargs, bblurs
     bdogs = [d.view(-1, *d.shape[2:]) for d in bdogs]
     err = 0
     for d in bdogs:
@@ -1265,7 +1313,8 @@ def routes_phase(frames: list, dev, reps: int = 7) -> dict:
     from popsift_tpu_torch.ops import patches as PT
     from popsift_tpu_torch.ops.kernels import (desc, extrema_mask, orient,
                                                refine)
-    from popsift_tpu_torch.ops.pyramid import CHAIN_GROUP, build_pyramid
+    from popsift_tpu_torch.ops.pyramid import (CHAIN_GROUP, build_pyramid,
+                                               first_thin_octave)
     from popsift_tpu_torch.pipeline import (build_extract_plan, extract,
                                             extract_batch)
 
@@ -1317,12 +1366,14 @@ def routes_phase(frames: list, dev, reps: int = 7) -> dict:
           f"batched window route launched K6 "
           f"{n['extract_windows_batched']} times for {n_oct} octaves")
     n = drive("chain", CHAIN_PATH, False, front="chain")
-    check(n["blur_chain"] == n_oct * n_groups and n["blur_dog"] == 0,
-          f"chain front launched K7 {n['blur_chain']} times for {n_oct} "
-          f"octaves of {n_groups} groups and K5 {n['blur_dog']} times")
-    drive("chain_batch", CHAIN_PATH[:1] + BATCH_PATH[2:], True,
-          front="chain")
-    drive("windows_chain", ("blur_chain",) + WINDOW_PATH[2:], False,
+    n_wide = first_thin_octave(plan.pyramid)
+    check(n["blur_chain"] == n_wide * n_groups and n["blur_dog"] == 0
+          and n["blur_dog_thin"] == 1,
+          f"chain front launched K7 {n['blur_chain']} times for {n_wide} "
+          f"wide octaves of {n_groups} groups, K5 {n['blur_dog']} times and "
+          f"its thin entry {n['blur_dog_thin']} times")
+    drive("chain_batch", CHAIN_PATH, True, front="chain")
+    drive("windows_chain", CHAIN_PATH[:2] + WINDOW_PATH[2:], False,
           detect="windows", front="chain")
 
     # the entries off every path, driven once on the densest octave's rows
@@ -1431,6 +1482,34 @@ def routes_phase(frames: list, dev, reps: int = 7) -> dict:
             f"clock, ends in synchronize): " + ", ".join(
                 f"{r} {statistics.median(t):.2f} [{min(t):.2f}]"
                 for r, t in times.items()))
+
+    # the chain front against the level front: one profiler pass each of
+    # frames already on the card, in turns, single frame and the batch
+    # (launch calls, device busy, the port's kernels' device time)
+    up = {False: torch.from_numpy(frames[0]).to(dev),
+          True: torch.from_numpy(imgs).to(dev)}
+    go = {False: extract, True: extract_batch}
+    prof = {}
+    for batch in (False, True):
+        for r in ("default", "chain", "chain", "default"):
+            key = f"{r} {'batch' if batch else 'single'}"
+            prof.setdefault(key, []).append(profile_counts(
+                lambda: go[batch](up[batch], plan, dev, **routes[r]), dev))
+    for key, runs in prof.items():
+        say(f"{key} front profile (two passes in turns): launch calls "
+            f"{[c['launch_calls'] for c in runs]}, device ops "
+            f"{[c['device_ops'] for c in runs]}, device busy ms "
+            f"{[c['device_busy_ms'] for c in runs]}, stream syncs "
+            f"{[c['stream_syncs'] for c in runs]}, the port's kernels (ms) "
+            f"{runs[0]['ours_ms']}")
+    # K3 and K4 latency bound? Their device time for the frame's jobs
+    # against the batch's four times as many, on the default route
+    for k in ("orientation_hist_kernel", "descriptor_loop_kernel"):
+        one = [c["ours_ms"].get(k, 0.0) for c in prof["default single"]]
+        four = [c["ours_ms"].get(k, 0.0) for c in prof["default batch"]]
+        grow = statistics.mean(four) / max(statistics.mean(one), 1e-9)
+        say(f"{k}: device ms {one} for frame 0's jobs, {four} for the "
+            f"{F} frames' (x {grow:.2f} for x {F} the work)")
     return out
 
 

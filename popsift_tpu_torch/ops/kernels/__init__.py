@@ -12,10 +12,10 @@ K3's launches over all octaves of a frame or batch; ``extrema_mask``,
 octave.
 ``descriptor_loop_octaves`` is K4's launch over all octaves of a frame or
 batch, ``descriptor_loop`` the same kernel on one octave.
-``compact`` is the compaction of all octaves' masks (two launches a call,
-counted once) and ``refine_octaves`` K2's launch over the rows of all
-octaves and frames; ``refine`` and ``refine_batched`` the same kernel on
-one octave, off every extraction path. The bucketed
+``compact`` is the compaction of all octaves' masks (one launch a call)
+and ``refine_octaves`` K2's launch over the rows of all octaves and
+frames; ``refine`` and ``refine_batched`` the same kernel on one octave,
+off every extraction path. The bucketed
 entries of K3 and K4 add no kernel of their own: each counts the
 calls in which it launched the kernel beneath it.
 """

@@ -7,7 +7,9 @@ each: ``blurs[:, i]`` is level l0 + i (the separable blur of the level
 before it, edge-replicated at every level) and ``dogs[:, i]`` is that
 level minus the one before. ``group`` caps the levels fused into one
 launch; the next group starts from the last level of the one before, as
-in the JAX function. One launch covers all N planes.
+in the JAX function. One launch covers all N planes. ``pick`` takes
+every second pixel of one level (the next octave's level 0) from the
+launch that writes that level.
 
 Every level equals kernel K5's (ops/kernels/blur_dog.py) bit for bit:
 the plain version is the chain of K5's plain version.
@@ -38,13 +40,17 @@ def _alloc(src: torch.Tensor, n: int, out):
             torch.empty((N, n, H, W), dtype=torch.float32, device=src.device))
 
 
-def blur_chain_torch(src: torch.Tensor, kernels, out=None):
+def blur_chain_torch(src: torch.Tensor, kernels, out=None, pick=None,
+                     pick_level: int = 0):
     """Plain version: the level-by-level chain of ``blur_dog_torch``.
-    ``out`` = (blurs, dogs) f32[N, n, H, W] tensors to write into."""
+    ``out`` = (blurs, dogs) f32[N, n, H, W] tensors to write into;
+    ``pick`` f32[N, oh, ow] takes every second pixel of level
+    ``pick_level`` of the chain."""
     blurs, dogs = _alloc(src, len(kernels), out)
     prev = src
     for i, k in enumerate(kernels):
-        blur_dog_torch(prev, k, out=(blurs[:, i], dogs[:, i]))
+        blur_dog_torch(prev, k, out=(blurs[:, i], dogs[:, i]),
+                       pick=pick if i == pick_level else None)
         prev = blurs[:, i]
     return blurs, dogs
 
@@ -60,20 +66,25 @@ def _check_levels(name: str, t: torch.Tensor, shape) -> None:
 
 
 def blur_chain(src: torch.Tensor, kernels, group: int | None = None,
-               out=None):
+               out=None, pick=None, pick_level: int = 0):
     """(blurs, dogs) f32[N, n, H, W] of the n = len(kernels) levels that
     follow ``src`` f32[N, H, W]: plain version on the CPU, kernel K7 on a
     CUDA device, one launch per group of at most ``group`` levels (None:
     all of them, at most 5). ``out`` = (blurs, dogs) tensors to write
-    into (planes and levels may be strided); allocated if None."""
+    into (planes and levels may be strided); allocated if None.
+    ``pick`` f32[N, oh, ow] (oh <= ceil(H/2), ow <= ceil(W/2), planes may
+    be strided) takes ``blurs[:, pick_level, 2y, 2x]`` from the launch
+    that writes that level."""
     global launches
     if src.dim() != 3:
         raise ValueError("blur_chain expects f32[N, H, W] planes")
     n = len(kernels)
     if n < 1:
         raise ValueError("blur_chain needs at least one level")
+    if pick is not None and not 0 <= pick_level < n:
+        raise ValueError(f"blur_chain: pick level {pick_level} of {n}")
     if src.device.type == "cpu":
-        return blur_chain_torch(src, kernels, out)
+        return blur_chain_torch(src, kernels, out, pick, pick_level)
     group = n if group is None else max(1, min(group, n))
     if group > MAX_LEVELS:
         raise ValueError(f"blur_chain: at most {MAX_LEVELS} levels a launch")
@@ -82,7 +93,14 @@ def blur_chain(src: torch.Tensor, kernels, group: int | None = None,
     _check_planes("blur_chain src", src, (N, H, W))
     for nm, t in (("blurs", blurs), ("dogs", dogs)):
         _check_levels(f"blur_chain {nm}", t, (N, n, H, W))
-    for t in (src, blurs, dogs):
+    oh = ow = 0
+    if pick is not None:
+        oh, ow = pick.shape[-2:]
+        if pick.dim() != 3 or oh > (H + 1) // 2 or ow > (W + 1) // 2:
+            raise ValueError(f"blur_chain pick: {list(pick.shape)} does not "
+                             f"fit every second pixel of {[N, H, W]}")
+        _check_planes("blur_chain pick", pick, (N, oh, ow))
+    for t in (src, blurs, dogs) + (() if pick is None else (pick,)):
         if t.device != src.device or t.device.type != "cuda":
             raise ValueError("blur_chain: every tensor must be on one CUDA "
                              f"device (got {t.device})")
@@ -95,7 +113,8 @@ def blur_chain(src: torch.Tensor, kernels, group: int | None = None,
     prev = src
     for g0 in range(0, n, group):
         g1 = min(n, g0 + group)
-        if lib.ps_blur_chain_tile(H, W, sum(spans[g0:g1])) == 0:
+        T = lib.ps_blur_chain_tile(N, H, W, sum(spans[g0:g1]))
+        if T == 0:
             raise ValueError(
                 f"blur_chain: the halo of levels {g0}..{g1 - 1} "
                 f"({sum(spans[g0:g1])} pixels a side) does not fit a "
@@ -104,11 +123,14 @@ def blur_chain(src: torch.Tensor, kernels, group: int | None = None,
             [kernels[i][spans[i]:] for i in range(g0, g1)]), dtype=np.float32)
         sp = np.asarray(spans[g0:g1], dtype=np.int32)
         b, d = blurs[:, g0:g1], dogs[:, g0:g1]
+        pk = pick if pick is not None and g0 <= pick_level < g1 else None
         rc = lib.ps_blur_chain(
             prev.data_ptr(), prev.stride(0), b.data_ptr(), b.stride(0),
-            b.stride(1), d.data_ptr(), d.stride(0), d.stride(1), N, H, W,
-            taps.ctypes.data_as(ctypes.c_void_p),
-            sp.ctypes.data_as(ctypes.c_void_p), g1 - g0,
+            b.stride(1), d.data_ptr(), d.stride(0), d.stride(1),
+            None if pk is None else pk.data_ptr(),
+            0 if pk is None else pk.stride(0), oh, ow, pick_level - g0,
+            N, H, W, taps.ctypes.data_as(ctypes.c_void_p),
+            sp.ctypes.data_as(ctypes.c_void_p), g1 - g0, T,
             build.stream_of(src))
         build.check(rc, NAME)
         launches += 1

@@ -47,11 +47,12 @@ _LL = ctypes.c_longlong
 # C signatures (see the extern "C" functions in csrc/*.cu)
 _SIGNATURES = {
     # src, src_stride, blur, blur_stride, blur_lstride, dog, dog_stride,
-    # dog_lstride, N, H, W, taps, spans, n, stream
-    "ps_blur_chain": (_VP, _LL, _VP, _LL, _LL, _VP, _LL, _LL, _I, _I, _I,
-                      _VP, _VP, _I, _VP),
-    # H, W, Scum -> tile side (0: the halo does not fit)
-    "ps_blur_chain_tile": (_I, _I, _I),
+    # dog_lstride, pick, pick_stride, OH, OW, pick_level, N, H, W, taps,
+    # spans, n, T, stream
+    "ps_blur_chain": (_VP, _LL, _VP, _LL, _LL, _VP, _LL, _LL, _VP, _LL, _I,
+                      _I, _I, _I, _I, _I, _VP, _VP, _I, _I, _VP),
+    # N, H, W, Scum -> tile side (0: the halo does not fit)
+    "ps_blur_chain_tile": (_I, _I, _I, _I),
     # vol, cy, cx, n_valid, K, D, H, W, radius, rows, cols, out, stream
     "ps_extract_windows": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I,
                            _VP, _VP),
@@ -78,7 +79,7 @@ _SIGNATURES = {
     # table (host i64[n_oct, 5]), n_oct, F, x0, y0, z0, n_found, maxlevel,
     # vlfeat, out, stream
     "ps_refine_octaves": (_VP, _I, _I, _VP, _VP, _VP, _VP, _I, _I, _VP, _VP),
-    # table (host i64[n_oct, 16]), n_oct, F, rows, scratch, x0, y0, z0,
+    # table (host i64[n_oct, 15]), n_oct, F, rows, scratch, x0, y0, z0,
     # n_found, n_dropped, stream
     "ps_compact_octaves": (_VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP,
                            _VP),

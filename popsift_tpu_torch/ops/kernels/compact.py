@@ -13,7 +13,8 @@ y0 and z0 = layer + 1; frame f's octave o at rows f * Ktot + offs[o] ..
 + cap[o]) and the i64 counts n_found[F, n_oct] and n_dropped[F, n_oct],
 entry for entry as the plain version :func:`compact_mask_torch` (the
 port's ``ops/extrema._compact_mask``) gives them per frame and octave.
-On a CUDA device it is two launches and reads nothing back.
+On a CUDA device it is one launch (after a memset of its counters) and
+reads nothing back.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ REPLACES = "popsift_tpu/ops/extrema.py:195"      # XLA, no Pallas call
 MAX_OCTAVES = 16         # MAX_OCT of csrc/compact.cu
 MAX_LEVELS = 4           # MAX_LEVELS of csrc/compact.cu
 B = 128                  # entries a block
-CHUNK = 32               # blocks a warp of the counting pass
+CTR = 4                  # counter words a segment (csrc/compact.cu CTR)
+CTA_BLOCKS = 2048        # blocks a launch block counts (WARPS * CPW * CHUNK)
 launches = 0
 
 
@@ -65,9 +67,11 @@ def _words(n_bits: int) -> int:
 def _layout(shapes: tuple, caps: tuple, pinned: int, F: int):
     """The launch table (without mask addresses) and the scratch words of
     a compaction: per octave N, H*W, W, cap, K, first row, levels, scratch
-    base and words a frame, and the offsets within a frame of the counts,
-    the level indices and the bits of each level (csrc/compact.cu)."""
-    rows, base, table = 0, 0, []
+    base and words a frame, and the offsets within a frame of the level
+    indices and the bits of each level (csrc/compact.cu). The scratch
+    starts with CTR counter words for each frame and octave; every offset
+    is a whole number of 16-byte groups, which the kernel loads at once."""
+    rows, base, table = 0, CTR * F * len(shapes), []
     for (Z, H, W), cap in zip(shapes, caps):
         N = Z * H * W
         ns = levels(N, cap)
@@ -76,16 +80,15 @@ def _layout(shapes: tuple, caps: tuple, pinned: int, F: int):
                              f"{len(ns)} levels for capacity {cap} "
                              f"(at most {MAX_LEVELS})")
         nb1 = -(-N // B)
-        off_ws = 0
-        off_idx = off_ws + -(-nb1 // CHUNK)
-        off = off_idx + 2 * cap
+        off_idx = 0
+        off = -(-(off_idx + 2 * cap) // 4) * 4
         off_bits = []
         for n_bits in [N, nb1] + [-(-n // B) for n in ns[1:-1]]:
             off_bits.append(off)
             off += _words(n_bits)
         off_bits += [0] * (MAX_LEVELS - len(off_bits))
         table.append([0, N, H * W, W, cap, block_k_of(N, cap, pinned), rows,
-                      len(ns), base, off, off_ws, off_idx, *off_bits])
+                      len(ns), base, off, off_idx, *off_bits])
         base += F * off
         rows += cap
     return np.asarray(table, np.int64), base, rows
@@ -189,8 +192,7 @@ def compact_octaves(masks, caps, pinned: int = 0, F: int = 1):
     frame-major, n_found i64[F, n_oct], n_dropped i64[F, n_oct]):
     ``masks`` bool or uint8 [F, Z, H_o, W_o] per octave, ``caps`` the
     octaves' capacities, ``pinned`` the config's ``compact_block_k``.
-    Plain version on the CPU, two launches of the kernel on a CUDA
-    device (counted as one call)."""
+    Plain version on the CPU, one launch of the kernel on a CUDA device."""
     global launches
     _check(masks, caps, F)
     if masks[0].device.type == "cpu":
@@ -203,10 +205,12 @@ def compact_octaves(masks, caps, pinned: int = 0, F: int = 1):
     table = layout.copy()
     table[:, 0] = [m.data_ptr() for m in masks]
     dev = masks[0].device
-    # one allocation for the rows and the scratch, one for the counts
-    buf = torch.empty(3 * F * rows + words, dtype=torch.int32, device=dev)
-    x0, y0, z0 = buf[:3 * F * rows].view(3, F * rows)
-    scratch = buf[3 * F * rows:]
+    # one allocation for the rows and the scratch, each of x0, y0, z0 and
+    # the scratch from a 16-byte boundary; one for the counts
+    pitch = -(-F * rows // 4) * 4
+    buf = torch.empty(3 * pitch + words, dtype=torch.int32, device=dev)
+    x0, y0, z0 = buf[:3 * pitch].view(3, pitch)[:, :F * rows]
+    scratch = buf[3 * pitch:]
     n_found, n_dropped = torch.empty((2, F, len(masks)), dtype=torch.int64,
                                      device=dev)
     lib = build.load_library()

@@ -11,15 +11,16 @@ DoG layers, stored in 0..255 scale:
   and columns at the reference's sample positions and filtering them;
 * levels 1..L-1 by incremental separable blur with edge-replicated
   borders, each with its DoG, DoG[l-1] = blur[l] - blur[l-1], in one
-  call of kernel K5 (ops/kernels/blur_dog.py) per level for all frames,
-  and for the thin octaves (a plane of at most 4096 pixels, 34 x 60 and
-  smaller at 1080p) in ONE call for all their levels (``front="level"``,
-  the default), or in one call of kernel K7 (ops/kernels/blur_chain.py)
-  per group of three levels (``front="chain"``, the JAX package's
-  ``use_pallas="chain"``); both give the same planes bit for bit;
+  call of kernel K5 (ops/kernels/blur_dog.py) per level for all frames
+  (``front="level"``, the default), or in one call of kernel K7
+  (ops/kernels/blur_chain.py) per group of three levels
+  (``front="chain"``, the JAX package's ``use_pallas="chain"``); on both
+  fronts the thin octaves (a plane of at most 4096 pixels, 34 x 60 and
+  smaller at 1080p) take ONE call of K5's thin entry for all their
+  levels; both fronts give the same planes bit for bit;
 * octave o>0 level 0 picks every second pixel of level L-3 of the
-  previous octave (``downscale_mode="pick"``): K5's launch for that level
-  writes it as a second output (the chain front and the plain versions
+  previous octave (``downscale_mode="pick"``): the K5 or K7 launch that
+  writes that level writes it as a second output (the plain versions
   copy the slice). ``downscale_mode="interpolate"`` takes the odd pixels
   instead, ``scaling_mode="direct"`` builds it from the input with the
   octave's dd filter.
@@ -51,6 +52,7 @@ is its one-frame form.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import partial
 
 import numpy as np
 import torch
@@ -291,15 +293,15 @@ def _thin_allowed(cfg: SiftConfig) -> bool:
             and cfg.gauss_mode not in FROM_LEVEL0)
 
 
-def first_thin_octave(plan: PyramidPlan, front: str = "level") -> int:
+def first_thin_octave(plan: PyramidPlan) -> int:
     """Index of the first octave whose levels go through K5's one-launch
-    thin entry (every later octave does too); ``len(plan.dims)`` if none
-    does: only the level front of the incremental pick-every-second
-    strategy has the entry, which picks the next octave from a level it
-    writes."""
+    thin entry (every later octave does too), on either front;
+    ``len(plan.dims)`` if none does: only the incremental
+    pick-every-second strategy has the entry, which picks the next octave
+    from a level it writes."""
     n_oct = len(plan.dims)
     first = n_oct
-    if (front == "level" and plan.config.total_levels - 3 >= 1
+    if (plan.config.total_levels - 3 >= 1
             and _thin_allowed(plan.config)):
         while first > 0 and n_oct - first < THIN_MAX_OCTAVES and thin_fits(
                 *plan.dims[first - 1], plan.inc_kernels[1:]):
@@ -312,17 +314,18 @@ def build_pyramid_frames(imgs: torch.Tensor, plan: PyramidPlan,
     """Pyramids of F same-sized frames, ``imgs`` [F, H, W] uint8 (or
     [0, 1] float32). Returns (blurs, dogs): tuples over octaves of
     f32[F, L, H, W] and f32[F, L-1, H, W] on the images' device. With
-    ``front="level"`` each level runs K5 once for all F frames and the
-    thin octaves run all their levels in one K5 launch, with
+    ``front="level"`` each level runs K5 once for all F frames, with
     ``front="chain"`` each group of three levels of an incremental mode
-    runs K7 once (their plain versions with ``plain``); the modes that
-    blur from level 0 run K5 per level on both fronts, as the JAX
-    package runs no chain for them."""
+    runs K7 once; on both the thin octaves run all their levels in one K5
+    launch (their plain versions with ``plain``); the modes that blur
+    from level 0 run K5 per level on both fronts, as the JAX package runs
+    no chain for them."""
     cfg = plan.config
     if front not in FRONTS:
         raise ValueError(f"front must be one of {FRONTS}, got {front!r}")
     blur_level = blur_dog_torch if plain else blur_dog
-    chain = blur_chain_torch if plain else blur_chain
+    chain = blur_chain_torch if plain else partial(blur_chain,
+                                                   group=CHAIN_GROUP)
     F = imgs.shape[0]
     total = cfg.total_levels
     dev = imgs.device
@@ -335,7 +338,7 @@ def build_pyramid_frames(imgs: torch.Tensor, plan: PyramidPlan,
     fixed = cfg.gauss_mode in ("fixed9", "fixed15")
     from_level0 = cfg.gauss_mode in FROM_LEVEL0
     picks = cfg.scaling_mode == "indirect" and cfg.downscale_mode == "pick"
-    first_thin = first_thin_octave(plan, front)
+    first_thin = first_thin_octave(plan)
     for octv, (levels, dog) in enumerate(zip(blurs, dogs)):
         oh, ow = plan.dims[octv]
         if octv == 0 and fixed:
@@ -356,7 +359,7 @@ def build_pyramid_frames(imgs: torch.Tensor, plan: PyramidPlan,
         if octv >= first_thin:
             break
         nxt = blurs[octv + 1][:, 0] if picks and octv + 1 < n_oct else None
-        picked = False       # whether a K5 launch wrote nxt
+        picked = False       # whether a K5 or K7 launch wrote nxt
         if octv == 0 and fixed:
             torch.sub(levels[:, 1:], levels[:, :-1], out=dog)
         elif from_level0:
@@ -367,10 +370,10 @@ def build_pyramid_frames(imgs: torch.Tensor, plan: PyramidPlan,
             torch.sub(levels[:, 1:], levels[:, :-1], out=dog)
             picked = src_lvl >= 1
         elif front == "chain":
-            for l0 in range(1, total, CHAIN_GROUP):
-                l1 = min(total, l0 + CHAIN_GROUP)
-                chain(levels[:, l0 - 1], plan.inc_kernels[l0:l1],
-                      out=(levels[:, l0:l1], dog[:, l0 - 1:l1 - 1]))
+            chain(levels[:, 0], plan.inc_kernels[1:],
+                  out=(levels[:, 1:], dog),
+                  pick=nxt if src_lvl >= 1 else None, pick_level=src_lvl - 1)
+            picked = src_lvl >= 1
         else:
             for lvl in range(1, total):
                 blur_level(levels[:, lvl - 1], plan.inc_kernels[lvl],

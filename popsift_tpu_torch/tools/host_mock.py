@@ -55,16 +55,18 @@ def rewrite(source: str) -> str:
                   r"\1* \2 = (\1*)mock_dyn_smem;", source)
 
 
-def build(name: str) -> str:
+def build(name: str, defines: tuple = ()) -> str:
     """Path of the host library of ``csrc/<name>.cu``, built if it is
-    not cached under a hash of the source and the stand-in."""
+    not cached under a hash of the source, the stand-in and ``defines``
+    (``NAME=value`` macros given to the compiler)."""
     cxx = find_compiler()
     if cxx is None:
         raise RuntimeError("g++ not found")
     with open(os.path.join(CSRC, f"{name}.cu")) as fh:
         text = rewrite(fh.read())
     with open(os.path.join(MOCK_INCLUDE, "cuda_runtime.h")) as fh:
-        digest = hashlib.sha256((text + fh.read() + " ".join(FLAGS))
+        flags = [*FLAGS, *(f"-D{d}" for d in defines)]
+        digest = hashlib.sha256((text + fh.read() + " ".join(flags))
                                 .encode()).hexdigest()[:16]
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
@@ -76,7 +78,7 @@ def build(name: str) -> str:
         with open(cpp, "w") as fh:
             fh.write(text)
         lib = os.path.join(tmp, "lib.so")
-        res = subprocess.run([cxx, *FLAGS, f"-I{MOCK_INCLUDE}", "-o", lib,
+        res = subprocess.run([cxx, *flags, f"-I{MOCK_INCLUDE}", "-o", lib,
                               cpp], capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"g++ failed on {name}.cu:\n{res.stderr}")

@@ -8,10 +8,11 @@
 // source keeping its own value), __shared__
 // variables are statics (one block at a time) and dynamic shared memory is a
 // buffer of the launch. It provides what desc.cu, blur_dog.cu,
-// extrema_mask.cu, orient.cu, refine.cu and compact.cu use (__ldg,
-// __popc and __ffs too); a source that needs more (atomics, other
-// shuffles, textures) has to add it here. It checks indexing and arithmetic,
-// not races between blocks, and it is no measure of speed.
+// extrema_mask.cu, orient.cu, refine.cu, compact.cu and blur_chain.cu use
+// (__ldg, __ldcg, __popc, __ffs, __umulhi, integer atomicAdd,
+// __threadfence and cudaMemsetAsync too); a source that needs more (other
+// shuffles, textures) has to add it here. It checks indexing and
+// arithmetic, not races between blocks, and it is no measure of speed.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -31,6 +32,8 @@
 #define __shared__ static
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 struct float4 { float x, y, z, w; };
+struct uint4 { unsigned x, y, z, w; };
+struct int4 { int x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 typedef void* cudaStream_t;
 typedef int cudaError_t;
@@ -73,7 +76,12 @@ inline unsigned __ballot_sync(unsigned, int pred) {
 }
 inline int __any_sync(unsigned m, int pred) { return __ballot_sync(m, pred) != 0u; }
 template <class T> inline T __ldg(const T* p) { return *p; }
+template <class T> inline T __ldcg(const T* p) { return *p; }
+template <class T> inline T atomicAdd(T* p, T v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
+inline int cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) { std::memset(p, v, n); return 0; }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline unsigned __umulhi(unsigned a, unsigned b) { return (unsigned)(((unsigned long long)a * b) >> 32); }
 inline int __ffs(int v) { return __builtin_ffs(v); }
 inline int __float2int_rn(float v) { return (int)std::nearbyintf(v); }
 using std::max; using std::min;

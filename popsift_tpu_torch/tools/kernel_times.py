@@ -2,7 +2,8 @@
 """Time the kernels of the extraction path the way it calls them, and
 the path end to end, on one NVIDIA GPU: the extremum mask (K1), the
 compaction, the refinement (K2), the orientation histograms (K3), the
-descriptors (K4) and the blur + DoG (K5).
+descriptors (K4), the blur + DoG (K5) and the chain front's blur chain
+(K7).
 
     python3 popsift_tpu_torch/tools/kernel_times.py [--tree DIR] [--reps N]
                                                     [--sass]
@@ -14,7 +15,10 @@ end (warm, host clock around work that ends in a synchronize) and
 records every call the path makes to the wrappers of K1, the
 compaction, K2, K3, K4 and K5 with its arguments (a tree whose path
 compacts and refines per octave records those calls, with the counts
-they were given),
+they were given), records the K7 calls of one ``extract(...,
+front="chain")`` of the frame and the K1 calls of one ``extract`` of
+``chip_smoke.synthetic_image`` of the same size (``K1_textured``) the
+same way,
 and replays each kernel's calls of one frame: the median time per frame
 over ``--reps`` replays with CUDA events around the wrapper calls, and
 the device time of the kernels themselves from one ``torch.profiler``
@@ -30,7 +34,8 @@ card: times taken on different cards or days do not compare.
 
 ``--sass`` also compiles the tree's sources of those kernels
 (``csrc/extrema_mask.cu``, ``compact.cu``, ``refine.cu``, ``orient.cu``,
-``desc.cu``, ``blur_dog.cu``, where present) with ``-Xptxas -v`` and
+``desc.cu``, ``blur_dog.cu``, ``blur_chain.cu``, where present) with
+``-Xptxas -v`` and
 prints each kernel's registers, spills and shared memory, and the number
 of SASS instructions ``cuobjdump -sass`` lists for it.
 
@@ -65,7 +70,7 @@ def sass_report(tree: str) -> dict:
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name in ("extrema_mask", "compact", "refine", "orient", "desc",
-                     "blur_dog"):
+                     "blur_dog", "blur_chain"):
             src = os.path.join(tree, "popsift_tpu_torch", "csrc", f"{name}.cu")
             if not os.path.exists(src):
                 continue
@@ -82,7 +87,7 @@ def sass_report(tree: str) -> dict:
             counts = {}
             for block in sass.split("Function : ")[1:]:
                 fn = block.split("\n", 1)[0].strip()
-                ops = re.findall(r"^\s+/\*[0-9a-f]{4}\*/\s+(@!?U?P\d\s+)?"
+                ops = re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+(@!?U?P\d\s+)?"
                                  r"([A-Z0-9_.]+)", block, flags=re.M)
                 by = {}
                 for _, op in ops:
@@ -155,8 +160,11 @@ def main(argv=None) -> int:
                        frames.shape[0])
 
     calls = {"K1": [], "compact": [], "K2": [], "K3": [], "K4": [],
-             "K5": []}
+             "K5": [], "K7": [], "K1_textured": []}
     depth = [0]
+    # the kernels the next run records, and under which name
+    active = set(calls) - {"K7", "K1_textured"}
+    suffix = [""]
 
     def record(kernel, mod, attr):
         fn = getattr(mod, attr, None)
@@ -164,8 +172,9 @@ def main(argv=None) -> int:
             return
 
         def wrapper(*a, **k):
-            if depth[0] == 0:          # not the calls a recorded call makes
-                calls[kernel].append((fn, a, k))
+            # not the calls a recorded call makes
+            if depth[0] == 0 and kernel in active:
+                calls[kernel + suffix[0]].append((fn, a, k))
             depth[0] += 1
             try:
                 return fn(*a, **k)
@@ -185,7 +194,19 @@ def main(argv=None) -> int:
     record("K4", D, "descriptor_loop_octaves")
     record("K5", P, "blur_dog")
     record("K5", P, "blur_dog_thin")
+    record("K7", P, "blur_chain")
     feats = extract(frame, plan, dev)
+    active.clear()
+    active.add("K7")
+    extract(frame, plan, dev, front="chain")
+    # K1 on a textured frame of the same size (the golden scenes'
+    # generator, whose contrast gate skips less of it)
+    sys.path.insert(0, HERE)
+    from chip_smoke import synthetic_image
+    active.clear()
+    active.add("K1")
+    suffix[0] = "_textured"
+    extract(synthetic_image(*frame.shape), plan, dev)
     torch.cuda.synchronize(dev)
     depth[0] = 1           # the replays below record nothing more
     result = {"card": smi, "tree": tree,

@@ -17,7 +17,14 @@ Cases: small and large masks (the two branches of ``_compact_mask``), the
 block clamp pinned and automatic, a saturated capacity, empty masks,
 several octaves and frames in one call (frames whose masks start at
 unaligned bytes), a run of 128 consecutive non-empty blocks (level 2
-keeps 127 of them), and a mask large enough for a third level.
+keeps 127 of them), masks of three frames that the kernel's count spreads
+over two launch blocks a frame (more than 2048 blocks of 128 entries)
+before the last of them selects, at recursion depths 1 and 2, small masks
+with more non-empty blocks than one select step takes and with more words
+of non-empty bits than a block has threads, a last block that keeps K
+entries (its padding is not lane 0), and a mask large enough for a third
+level. The source also runs with output rows that do not share an
+alignment and with its indices kept in the scratch.
 """
 
 import ctypes
@@ -76,6 +83,23 @@ def _case(name):
             (256, 96, 32, 16), 0
     if name == "run128":
         return [_run128()], (200,), 0
+    if name == "split_depth1":
+        return [_sparse(rng, (3, 3, 299, 299), 0.002, 4)], (1536,), 0
+    if name == "split_depth2":
+        return [_sparse(rng, (3, 3, 299, 299), 0.003, 3),
+                _sparse(rng, (3, 3, 100, 128), 0.01)], (64, 96), 0
+    if name == "last_full":
+        # the last block keeps K = 2 of its entries: every padding entry is
+        # its entry of rank K-1
+        m = _sparse(rng, (1, 3, 40, 64), 0.002)
+        m.reshape(-1)[-128:-100] = True
+        return [m], (64,), 2
+    if name == "dense_small":
+        # more non-empty blocks than one select step takes (4096)
+        return [_sparse(rng, (1, 3, 400, 512), 0.05)], (2400,), 0
+    if name == "wide_small":
+        # a small mask with more words of "non-empty" bits than threads
+        return [_sparse(rng, (1, 3, 1000, 1500), 0.0005, 2)], (17600,), 0
     if name == "deep":
         m = _sparse(rng, (1, 3, 1500, 1900), 0.00002)
         m[0, 1, 700, 100:1000:7] = True
@@ -84,7 +108,8 @@ def _case(name):
 
 
 CASES = ["small", "small_pinned", "large", "large_pinned", "saturated",
-         "empty", "octaves_frames", "run128"]
+         "empty", "octaves_frames", "run128", "split_depth1", "split_depth2",
+         "dense_small", "wide_small", "last_full"]
 
 
 def _plain(masks, caps, block_k):
@@ -118,6 +143,17 @@ def test_compaction_matches_jax(name):
         assert bool((n_found == torch.tensor(caps)).all())
     if name == "deep":
         assert len(C.levels(masks[0][0].size, caps[0])) == 3
+    if name in ("dense_small", "wide_small"):
+        m = masks[0][0]
+        nb = -(-m.size // C.B)
+        assert len(C.levels(m.size, caps[0])) == 1
+        ne = int(np.pad(m.reshape(-1), (0, nb * C.B - m.size))
+                 .reshape(nb, C.B).any(1).sum())
+        assert ne > 4096 if name == "dense_small" else -(-nb // 32) > 1024
+    if name.startswith("split"):
+        N = masks[0][0].size
+        assert -(-N // C.B) > C.CTA_BLOCKS and N % 16   # two blocks, unaligned
+        assert len(C.levels(N, caps[0])) == int(name[-1])
 
 
 @pytest.fixture(scope="module")
@@ -131,8 +167,9 @@ def compact_lib():
     return lib
 
 
-def _source(lib, masks, caps, block_k):
-    """The kernel source's outputs, every buffer filled with junk first."""
+def _source(lib, masks, caps, block_k, shift=0):
+    """The kernel source's outputs, every buffer filled with junk first;
+    y0 starts ``shift`` entries past a 16-byte boundary."""
     F = masks[0].shape[0]
     tm = [torch.from_numpy(m).view(torch.uint8) for m in masks]
     layout, words, rows = C._layout(tuple(tuple(m.shape[1:]) for m in tm),
@@ -140,8 +177,9 @@ def _source(lib, masks, caps, block_k):
     table = layout.copy()
     table[:, 0] = [m.data_ptr() for m in tm]
     scratch = torch.full((words,), -7, dtype=torch.int32)
-    x0, y0, z0 = (torch.full((F * rows,), -9, dtype=torch.int32)
+    x0, y0, z0 = (torch.full((F * rows + 4,), -9, dtype=torch.int32)
                   for _ in range(3))
+    x0, y0, z0 = x0[:F * rows], y0[shift:shift + F * rows], z0[:F * rows]
     n_found, n_dropped = (torch.full((F, len(tm)), -5, dtype=torch.int64)
                           for _ in range(2))
     assert lib.ps_compact_octaves(
@@ -155,6 +193,45 @@ def _source(lib, masks, caps, block_k):
 def test_compaction_source_matches_plain(compact_lib, name):
     masks, caps, block_k = _case(name)
     got = _source(compact_lib, masks, caps, block_k)
+    want = _plain(masks, caps, block_k)
+    for field, a, b in zip(("x0", "y0", "z0", "n_found", "n_dropped"), got,
+                           want):
+        assert torch.equal(a, b), field
+
+
+@pytest.mark.parametrize("name", ["saturated", "octaves_frames"])
+def test_compaction_source_unaligned_rows(compact_lib, name):
+    """Rows whose three outputs do not share an alignment are written one
+    at a time, with the same values."""
+    masks, caps, block_k = _case(name)
+    got = _source(compact_lib, masks, caps, block_k, shift=1)
+    want = _plain(masks, caps, block_k)
+    for field, a, b in zip(("x0", "y0", "z0", "n_found", "n_dropped"), got,
+                           want):
+        assert torch.equal(a, b), field
+
+
+@pytest.fixture(scope="module")
+def compact_lib_scratch():
+    """The source built to keep every segment's indices in its scratch,
+    as it does where a capacity does not fit a block's shared memory."""
+    if host_mock.find_compiler() is None:
+        pytest.skip("needs g++ to compile the kernel source for the CPU")
+    lib = ctypes.CDLL(host_mock.build("compact",
+                                      ("PS_COMPACT_IDX_SMEM_MAX=0",)))
+    fn = lib.ps_compact_octaves
+    fn.argtypes = list(build._SIGNATURES["ps_compact_octaves"])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@pytest.mark.parametrize("name", ["large_pinned", "saturated",
+                                  "split_depth2"])
+def test_compaction_source_scratch_indices(compact_lib_scratch, name):
+    """Indices kept in the scratch give the same rows as in shared
+    memory."""
+    masks, caps, block_k = _case(name)
+    got = _source(compact_lib_scratch, masks, caps, block_k)
     want = _plain(masks, caps, block_k)
     for field, a, b in zip(("x0", "y0", "z0", "n_found", "n_dropped"), got,
                            want):

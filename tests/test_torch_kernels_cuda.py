@@ -423,6 +423,25 @@ def test_blur_chain_kernel(dev, shape, group):
         prev = b
 
 
+@pytest.mark.parametrize("shape", [(75, 131), (540, 960), (1080, 1920)])
+def test_blur_chain_pick_kernel(dev, shape):
+    """K7's launch of the group that holds the picked level also writes
+    every second pixel of it into strided planes, at every tile side the
+    launch chooses (16 to 64), equal to the plain version's."""
+    ks = _chain_kernels()
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    src = (torch.rand((1, *shape), generator=gen) * 255).to(dev)
+    oh, ow = (shape[0] + 1) // 2, (shape[1] + 1) // 2
+    nxt = torch.full((1, 3, oh, ow), -1.0, device=dev)
+    got = blur_chain.blur_chain(src, ks, 3, pick=nxt[:, 1], pick_level=2)
+    want_pick = torch.full((1, oh, ow), -2.0, device=dev)
+    want = blur_chain.blur_chain_torch(src, ks, pick=want_pick, pick_level=2)
+    torch.cuda.synchronize(dev)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(nxt[:, 1], want_pick)
+    assert bool((nxt[:, 0] == -1).all() and (nxt[:, 2] == -1).all())
+
+
 def test_pyramid_chain_front_on_the_card(dev):
     plan = pyr.build_pyramid_plan(SiftConfig(), 120, 160)
     gen = torch.Generator(device="cpu").manual_seed(5)

@@ -1,8 +1,9 @@
-"""The CUDA sources of K1-K5 on the CPU, against their plain versions.
+"""The CUDA sources of K1-K5 and K7 on the CPU, against their plain
+versions.
 
 ``popsift_tpu_torch/tools/host_mock.py`` compiles ``csrc/extrema_mask.cu``,
-``csrc/refine.cu``, ``csrc/orient.cu``, ``csrc/desc.cu`` and
-``csrc/blur_dog.cu`` with g++
+``csrc/refine.cu``, ``csrc/orient.cu``, ``csrc/desc.cu``,
+``csrc/blur_dog.cu`` and ``csrc/blur_chain.cu`` with g++
 against a stand-in for the CUDA runtime (one std::thread per CUDA thread)
 and the tests call the C entry points on CPU tensors: the kernels' own
 indexing, strips, tile boxes, rings, bands and summation order run here,
@@ -23,6 +24,7 @@ import pytest
 import torch
 
 from popsift_tpu_torch.ops import patches
+from popsift_tpu_torch.ops.kernels import blur_chain as K7
 from popsift_tpu_torch.ops.kernels import blur_dog as K5
 from popsift_tpu_torch.ops.kernels import build
 from popsift_tpu_torch.ops.kernels import desc as K4
@@ -128,6 +130,123 @@ def test_blur_dog_thin_source(blur_lib, dims):
     assert blur_lib.ps_blur_dog_thin(
         table.ctypes.data, 1, 2, L, L - 3, taps.ctypes.data,
         spans.ctypes.data, None) != 0
+
+
+@pytest.fixture(scope="module")
+def chain_lib():
+    return _library("blur_chain")
+
+
+def _chain_kernels(spans, seed):
+    """Symmetric normalised filters of the given half-widths."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for S in spans:
+        k = rng.random(2 * S + 1).astype(np.float32) + 0.1
+        out.append((k + k[::-1]) / (2 * k.sum()))
+    return out
+
+
+def _chain_source(lib, src, ks, group, T, pick=None, pick_level=0):
+    """The kernel source's levels of ``src`` f32[N, H, W], launched per
+    group of levels as ops/kernels/blur_chain.py launches it, every
+    output filled with junk first; tile side T (0: the launch's own)."""
+    N, H, W = src.shape
+    n = len(ks)
+    blurs = torch.full((N, n, H, W), -3.0)
+    dogs = torch.full((N, n, H, W), -3.0)
+    spans = [(k.shape[0] - 1) // 2 for k in ks]
+    oh, ow = (0, 0) if pick is None else pick.shape[-2:]
+    prev = src
+    for g0 in range(0, n, group):
+        g1 = min(n, g0 + group)
+        t = T or lib.ps_blur_chain_tile(N, H, W, sum(spans[g0:g1]))
+        taps = np.ascontiguousarray(np.concatenate(
+            [ks[i][spans[i]:] for i in range(g0, g1)]), dtype=np.float32)
+        sp = np.asarray(spans[g0:g1], dtype=np.int32)
+        b, d = blurs[:, g0:g1], dogs[:, g0:g1]
+        pk = pick if pick is not None and g0 <= pick_level < g1 else None
+        assert lib.ps_blur_chain(
+            prev.data_ptr(), prev.stride(0), b.data_ptr(), b.stride(0),
+            b.stride(1), d.data_ptr(), d.stride(0), d.stride(1),
+            None if pk is None else pk.data_ptr(),
+            0 if pk is None else pk.stride(0), oh, ow, pick_level - g0, N,
+            H, W, taps.ctypes.data, sp.ctypes.data, g1 - g0, t, None) == 0
+        prev = blurs[:, g1 - 1]
+    return blurs, dogs
+
+
+@pytest.mark.parametrize("shape,spans,group,T", [
+    ((40, 56), (5, 7, 8, 10, 13), 3, 0),      # the default filters, 2 groups
+    ((40, 56), (5, 7, 8, 10, 13), 5, 0),      # one group, halo 43
+    ((75, 131), (0, 1, 2, 3, 4), 5, 0),       # narrow spans, one group
+    ((75, 131), (13, 0, 6, 1), 2, 0),         # spans 0-13, two groups
+    ((9, 15), (5, 7, 8, 10, 13), 3, 0),       # a plane smaller than a halo
+    ((200, 260), (5, 7, 8), 3, 64),           # interior and edge tiles
+    ((200, 260), (10, 13), 2, 32),
+    ((75, 131), (5, 7, 8), 3, 24),            # a side that is no power of 2
+    ((200, 260), (5, 7, 8, 10, 13), 5, 16),   # interior tiles, halo 43
+])
+def test_blur_chain_source(chain_lib, shape, spans, group, T):
+    """The chain's levels and DoGs of two strided planes equal the plain
+    level-by-level chain bit for bit, whatever the tile side and the
+    grouping, with each level's own border replicated at every level."""
+    ks = _chain_kernels(spans, sum(shape) + len(spans))
+    rng = np.random.default_rng(shape[0])
+    stack = torch.from_numpy(rng.random((2, 3, *shape)).astype(np.float32)
+                             * 255)
+    src = stack[:, 1]
+    blurs, dogs = _chain_source(chain_lib, src, ks, group, T)
+    want_b, want_d = K7.blur_chain_torch(src, ks)
+    for l in range(len(ks)):
+        assert torch.equal(blurs[:, l], want_b[:, l]), l
+        assert torch.equal(dogs[:, l], want_d[:, l]), l
+
+
+@pytest.mark.parametrize("shape,pick_level", [((75, 131), 2), ((40, 56), 0),
+                                              ((9, 15), 2)])
+def test_blur_chain_source_pick(chain_lib, shape, pick_level):
+    """The launch of the group that holds level ``pick_level`` also writes
+    every second pixel of it into strided planes, and nothing else."""
+    from popsift_tpu_torch.config import SiftConfig
+    from popsift_tpu_torch.gauss import build_gauss_tables, full_kernel
+    cfg = SiftConfig()
+    tables = build_gauss_tables(cfg)
+    ks = [full_kernel(tables.inc[l], int(tables.inc_span[l]))
+          for l in range(1, cfg.total_levels)]
+    rng = np.random.default_rng(shape[1])
+    src = torch.from_numpy(rng.random((2, *shape)).astype(np.float32) * 255)
+    oh, ow = (shape[0] + 1) // 2, (shape[1] + 1) // 2
+    nxt = torch.full((2, 3, oh, ow), -1.0)
+    blurs, _ = _chain_source(chain_lib, src, ks, 3, 0, pick=nxt[:, 1],
+                             pick_level=pick_level)
+    want = torch.full_like(nxt[:, 1], -1.0)
+    K7.blur_chain_torch(src, ks, pick=want, pick_level=pick_level)
+    assert torch.equal(nxt[:, 1], want)
+    assert torch.equal(want, K5.pick_every_second(blurs[:, pick_level],
+                                                  oh, ow))
+    assert torch.all(nxt[:, 0] == -1) and torch.all(nxt[:, 2] == -1)
+
+
+def test_blur_chain_source_refuses(chain_lib):
+    """A halo whose two buffers overflow the shared memory, a span past
+    24 and a pick level outside the group are refused."""
+    z = torch.zeros((1, 4, 4))
+    taps = np.zeros(5 * 25, np.float32)
+    call = lambda spans, T, pick_level=-1, pick=None: chain_lib.ps_blur_chain(
+        z.data_ptr(), 16, z.data_ptr(), 16, 16, z.data_ptr(), 16, 16, pick,
+        4, 2, 2, pick_level, 1, 4, 4, taps.ctypes.data,
+        np.asarray(spans, np.int32).ctypes.data, len(spans), T, None)
+    assert chain_lib.ps_blur_chain_tile(1, 4, 4, 120) == 0
+    assert call([24] * 5, 16) != 0
+    assert call([25], 16) != 0
+    assert call([3], 16, pick_level=1, pick=z.data_ptr()) != 0
+    assert call([3], 16, pick_level=0, pick=z.data_ptr()) == 0
+    assert call([3], 12) != 0                  # not a multiple of 8
+    assert chain_lib.ps_blur_chain_tile(1, 2160, 3840, 20) == 64
+    assert chain_lib.ps_blur_chain_tile(1, 2160, 3840, 23) == 56
+    assert chain_lib.ps_blur_chain_tile(1, 540, 960, 20) == 40
+    assert chain_lib.ps_blur_chain_tile(1, 270, 480, 20) == 16
 
 
 def _jobs(rng, L, H, W, n, case):

@@ -193,13 +193,12 @@ def test_next_octave_level0_matches_jax(h, w, octaves, seed):
 
 
 def test_thin_octaves_take_one_call(monkeypatch):
-    """The level front hands the octaves of at most 4096 pixels to one
+    """Both fronts hand the octaves of at most 4096 pixels to one
     ``blur_dog_thin`` call, which on the CPU equals the level-by-level
     calls bit for bit."""
     cfg = port_config(SiftConfig())
     big = tpyr.build_pyramid_plan(cfg, 1080, 1920)
     assert tpyr.first_thin_octave(big) == 6 and big.dims[6] == (34, 60)
-    assert tpyr.first_thin_octave(big, front="chain") == len(big.dims)
     plan = tpyr.build_pyramid_plan(port_config(SiftConfig(octaves=4)),
                                    67, 93)
     first = tpyr.first_thin_octave(plan)
@@ -224,6 +223,9 @@ def test_thin_octaves_take_one_call(monkeypatch):
             assert torch.equal(td[o][l - 1], d[0]), (o, l)
     pb, pd = tpyr.build_pyramid(img, plan, plain=True)
     assert all(torch.equal(a, b) for a, b in zip(tb + td, pb + pd))
+    cb, cd = tpyr.build_pyramid(img, plan, front="chain")
+    assert calls == [[(34, 47), (17, 24)]] * 2
+    assert all(torch.equal(a, b) for a, b in zip(cb + cd, tb + td))
 
 
 def _weighted_pixels(x, y, sigma, ang, half):

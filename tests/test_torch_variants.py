@@ -92,8 +92,9 @@ def test_pyramid_matches_jax(image, name):
 def test_thin_entry_only_for_incremental_pick(image, monkeypatch):
     """K5's thin entry picks the next octave from a level it writes: under
     the interpolated downscale, direct scaling and the modes that blur
-    from level 0 it must not run (and the pyramids above still equal
-    JAX's), while the default strategy takes it for its small octaves."""
+    from level 0 it must not run on either front (and the pyramids above
+    still equal JAX's), while the default strategy takes it for its small
+    octaves on both."""
     calls = []
     real = k5.blur_dog_thin_torch
     monkeypatch.setattr(tpyr, "blur_dog_thin_torch",
@@ -106,11 +107,15 @@ def test_thin_entry_only_for_incremental_pick(image, monkeypatch):
             *image.shape)
         assert tpyr.first_thin_octave(plan) == len(plan.dims), name
         tpyr.build_pyramid(_tensor(image), plan)
+        tpyr.build_pyramid(_tensor(image), plan, front="chain")
         assert not calls, name
     plan = tpyr.build_pyramid_plan(port_config(SiftConfig(octaves=3)),
                                    *image.shape)
     assert tpyr.first_thin_octave(plan) < len(plan.dims)
     tpyr.build_pyramid(_tensor(image), plan)
+    assert calls
+    calls.clear()
+    tpyr.build_pyramid(_tensor(image), plan, front="chain")
     assert calls
     # the interpolated downscale takes the odd pixels, not the pick
     cfg = SiftConfig(octaves=3, downscale_mode="interpolate")
