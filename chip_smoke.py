@@ -122,7 +122,30 @@ any failed phase raises and the script exits non-zero:
    tolerances); the plain-torch descriptor variants timed on the bench
    frame's jobs beside K4, with their bound; K1 on
    ``synthetic_image(1080, 1920)`` beside the bench frame; ms/frame of
-   batches of 1, 2 and 8 frames.
+   batches of 1, 2 and 8 frames;
+9. the SfM geometry (``sfm/ba.py``, ``sfm/pnp.py``; plain PyTorch, no
+   kernel of its own) at the size of the repo's BA benchmark problem:
+   100 cameras on an arc round 40,000 points, each seen by 5 of them
+   (200,000 observations), f = 500 on 640 x 480, the start perturbed as
+   tests/test_sfm.py::_make_ba_problem perturbs it. One
+   ``schur_dense_step`` and one ``schur_cg_step`` on the card against
+   the port on the CPU (cost within 1e-5 relative, dc and dp within
+   1e-3 x the step's max or twice the CPU's own f32 gap to its f64
+   step); ``bundle_adjust(iters=10)`` dense and CG: below 1e-4 of the
+   start cost without noise, ATE at most 1e-3 x the trajectory's extent
+   with 0.5 px noise and the final cost within 1e-3 of the CPU's, Huber
+   (5 % of the observations 80 px off) under a tenth of L2's ATE; the
+   joint focal solve on tests/test_sfm.py's 8-camera scene against the
+   CPU and within 0.5 % of the truth; ``bundle_adjust`` under
+   ``set_sync_debug_mode("error")`` and twice (bit-equal or not,
+   printed); ``ransac_pnp_batch`` at ``IncrementalSfM``'s shape (16
+   images x 2048 rows, about 1500 valid, a quarter outliers) on the card
+   against the CPU from the same ranks (R within 1e-4, t within 1e-4 x
+   |t|, inlier masks equal off the gate's 1 % band and on at least 99.9
+   % of the valid rows) and the truth, and its host syncs by source
+   line; the times of each (CUDA events, median of 5) beside their
+   bounds, with one profiler pass (launch calls, device ops, busy time,
+   idle share).
 
 TF32 is switched off for matmuls and cuDNN (the plain versions must run
 in full f32). The second line before the last is a JSON object with one
@@ -131,12 +154,14 @@ for the entries of the single-frame path, phase 6 for the window copy,
 the chain front and the entries off every path); the last line is the
 device record. ``--profile DIR`` also writes a torch.profiler table of
 one run of the main path, of the window route and of the chain front to
-DIR/profile*.txt and prints each run's counts.
+DIR/profile*.txt and prints each run's counts, and phase 9's tables of
+each timed SfM call.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import re
@@ -144,6 +169,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -2137,6 +2163,453 @@ def variants_phase(frames: list, dev, reps: int = 5) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the SfM geometry (sfm/ba.py, sfm/pnp.py) at the size of the
+# repo's BA benchmark problem (scripts/bench_sfm_kernels.py:73-75)
+# ---------------------------------------------------------------------------
+
+BA_CAMS, BA_POINTS, BA_VIEWS = 100, 40_000, 5
+BA_INTR = (500.0, 500.0, 320.0, 240.0)     # f = 500 on 640 x 480
+# ransac_pnp_batch as IncrementalSfM calls it: pnp_chunk images
+# (incremental.py:124), rows padded to a power of two (:424-433), its gate
+# (:122)
+PNP_B, PNP_ROWS, PNP_VALID, PNP_THRESH = 16, 2048, 1500, 2e-4
+
+
+def _rotations(w: np.ndarray) -> np.ndarray:
+    from popsift_tpu_torch.sfm.rotation import exp_so3
+    return exp_so3(torch.from_numpy(np.asarray(w, np.float32))).numpy()
+
+
+def _project(cams: np.ndarray, X: np.ndarray, obs_cam, obs_pt):
+    """(uv, depth) of each observation through world->camera (rotvec, t)
+    with BA_INTR."""
+    f, _, cx, cy = BA_INTR
+    R = _rotations(cams[:, :3]).astype(np.float64)
+    Xc = np.einsum("oij,oj->oi", R[obs_cam], X[obs_pt]) + cams[obs_cam, 3:]
+    uv = np.stack([f * Xc[:, 0] / Xc[:, 2] + cx, f * Xc[:, 1] / Xc[:, 2] + cy],
+                  1)
+    return uv, Xc[:, 2]
+
+
+def ba_scene(seed: int, noise_px: float = 0.0, outliers: float = 0.0,
+             n_cams: int = BA_CAMS, n_points: int = BA_POINTS,
+             views: int = BA_VIEWS):
+    """A BA problem with real geometry: cameras on a 180-degree arc of
+    radius 8 round points in a 4 x 4 x 4 cube, each looking at the
+    centre with a small tilt and roll; each point seen by ``views``
+    cameras drawn at random; every point in front of its cameras. The
+    start is perturbed as tests/test_sfm.py::_make_ba_problem perturbs
+    it (cameras by 0.01, points by 0.05, camera 0 exact and fixed);
+    ``outliers`` of the observations moved by N(0, 80 px). Returns (the
+    problem's fields as numpy arrays, true cameras)."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-2, 2, (n_points, 3))
+    a = np.linspace(-np.pi / 2, np.pi / 2, n_cams)
+    i = np.arange(n_cams)
+    w = np.stack([0.05 * np.sin(3.1 * i + 0.5), a,
+                  0.05 * np.cos(2.3 * i)], 1).astype(np.float32)
+    C = np.stack([8 * np.sin(a), 0.5 * np.sin(2 * a + 1.0), -8 * np.cos(a)],
+                 1)
+    R = _rotations(w).astype(np.float64)
+    cams_gt = np.concatenate([w, -np.einsum("nij,nj->ni", R, C)], 1
+                             ).astype(np.float32)
+    obs_cam = np.argsort(rng.random((n_points, n_cams)), 1)[:, :views]
+    obs_cam = obs_cam.reshape(-1)
+    obs_pt = np.repeat(np.arange(n_points), views)
+    uv, depth = _project(cams_gt, X, obs_cam, obs_pt)
+    check(bool((depth > 0).all()), "a BA scene point lies behind a camera")
+    if noise_px:
+        uv += rng.normal(0, noise_px, uv.shape)
+    if outliers:
+        bad = rng.choice(len(uv), int(outliers * len(uv)), replace=False)
+        uv[bad] += rng.normal(0, 80.0, (len(bad), 2))
+    cams0 = cams_gt + rng.normal(0, 0.01, cams_gt.shape).astype(np.float32)
+    cams0[0] = cams_gt[0]
+    fixed = np.zeros(n_cams, bool)
+    fixed[0] = True
+    fields = dict(cams=cams0, points=(X + rng.normal(0, 0.05, X.shape)),
+                  intr=np.array(BA_INTR), obs_cam=obs_cam, obs_pt=obs_pt,
+                  obs_uv=uv, obs_valid=np.ones(len(uv), bool),
+                  cam_fixed=fixed)
+    return fields, cams_gt
+
+
+def focal_scene():
+    """tests/test_sfm.py:163-209's scene (8 tilted cameras round 80
+    points, seed 11), the shared focal 5 % off."""
+    rng = np.random.default_rng(11)
+    f = 500.0
+    n_cams, n_pts = 8, 80
+    X = rng.uniform([-2, -2, -2], [2, 2, 2],
+                    size=(n_pts, 3)).astype(np.float32)
+    cams_gt = []
+    for i in range(n_cams):
+        ang = 2 * np.pi * i / n_cams * 0.35
+        C = np.array([8 * np.sin(ang), 3.0 * np.sin(2 * ang + 1.0),
+                      -8 * np.cos(ang)], np.float32)
+        w = np.array([0.25 * np.sin(3.1 * i + 0.5), ang,
+                      0.1 * np.cos(2.3 * i)], np.float32)
+        R = _rotations(w[None])[0]
+        cams_gt.append(np.concatenate([w, (-R @ C).astype(np.float32)]))
+    cams_gt = np.stack(cams_gt)
+    obs_cam = np.repeat(np.arange(n_cams), n_pts)
+    obs_pt = np.tile(np.arange(n_pts), n_cams)
+    uv = np.concatenate([
+        _project(cams_gt[ci:ci + 1], X, np.zeros(n_pts, int),
+                 np.arange(n_pts))[0] + rng.normal(0, 0.2, (n_pts, 2))
+        for ci in range(n_cams)])
+    cams0 = cams_gt + rng.normal(0, 0.01, cams_gt.shape).astype(np.float32)
+    cams0[0] = cams_gt[0]
+    X0 = X + rng.normal(0, 0.05, X.shape).astype(np.float32)
+    fixed = np.zeros(n_cams, bool)
+    fixed[0] = True
+    return dict(cams=cams0, points=X0,
+                intr=np.array([f * 1.05, f * 1.05, 320.0, 240.0]),
+                obs_cam=obs_cam, obs_pt=obs_pt, obs_uv=uv,
+                obs_valid=np.ones(len(uv), bool), cam_fixed=fixed), f
+
+
+def pnp_scene(seed: int, B: int = PNP_B, rows: int = PNP_ROWS,
+              n_valid: int = PNP_VALID):
+    """B images for ransac_pnp_batch: each a random pose and about
+    ``n_valid`` valid rows (of ``rows``) of points 4-8 in front of the
+    camera, a quarter of them outliers uniform in [-0.5, 0.5], the
+    inliers' normalized coordinates with N(0, 1e-3) noise (as
+    tests/test_cv2_sfm_parity.py:110-120). Returns (X [B,N,3], x [B,N,2],
+    valid [B,N], inlier truth [B,N], R [B,3,3], t [B,3], the median
+    depth of each image's points [B])."""
+    rng = np.random.default_rng(seed)
+    Xs, xs, vs, truth, Rs, ts, depth = [], [], [], [], [], [], []
+    for _ in range(B):
+        w = rng.normal(0, 0.3, 3)
+        R = _rotations(w[None])[0].astype(np.float64)
+        t = rng.uniform([-1, -1, -1], [1, 1, 1])
+        Xc = rng.uniform([-2, -1.5, 4], [2, 1.5, 8], (rows, 3))
+        X = (Xc - t) @ R                       # world points: R^T (Xc - t)
+        x = Xc[:, :2] / Xc[:, 2:3] + rng.normal(0, 1e-3, (rows, 2))
+        out = rng.random(rows) < 0.25
+        x[out] = rng.uniform(-0.5, 0.5, (int(out.sum()), 2))
+        valid = np.arange(rows) < n_valid + int(rng.integers(-100, 101))
+        Xs.append(X)
+        xs.append(x)
+        vs.append(valid)
+        truth.append(valid & ~out)
+        Rs.append(R)
+        ts.append(t)
+        depth.append(np.median(Xc[:, 2]))
+    f32 = lambda a: torch.from_numpy(np.stack(a).astype(np.float32))
+    return (f32(Xs), f32(xs), torch.from_numpy(np.stack(vs)),
+            np.stack(truth), np.stack(Rs), np.stack(ts), np.array(depth))
+
+
+def _ba_bound_ms(n_cams: int, n_points: int, n_obs: int, kind: str,
+                 cg_iters: int = 25) -> tuple:
+    """The least time one GN step could take (see :func:`bound_ms`).
+    Dense: the Schur product B = (6 Nc x 3 Np) (3 Np x 6 Nc), 2 (6 Nc)^2
+    3 Np f32 operations; the step's inputs and outputs are a few MB.
+    CG: each of the cg_iters + 1 applications of S reads Jc and Jp (72
+    bytes an observation) and gathers a camera (24) and a point (12)
+    block for each observation; the step reads the observations (uv,
+    two i64 indices, valid: 25 bytes) and writes Jc and Jp once (72)."""
+    if kind == "dense":
+        n_ops = 2.0 * (6 * n_cams) ** 2 * 3 * n_points
+        n_bytes = n_obs * 25 + (n_cams * 6 + n_points * 3) * 4 * 2
+    else:
+        n_ops = (cg_iters + 1) * n_obs * 100.0
+        n_bytes = (cg_iters + 1) * n_obs * 108.0 + n_obs * (25 + 72)
+    return bound_ms(n_bytes, n_ops)
+
+
+def _gap(got, ref) -> float:
+    """max |got - ref| / max |ref| (got moved to ref's device)."""
+    ref = ref.double()
+    return float((got.to(ref.device).double() - ref).abs().max()
+                 / ref.abs().max().clamp(min=1e-30))
+
+
+def _cost(B, p) -> float:
+    return float(B.robust_cost(B.residuals(p)))
+
+
+def _ate_of(E, cams, cams_gt) -> float:
+    return E.ate_rmse(E.camera_centers(cams.cpu().numpy()),
+                      E.camera_centers(cams_gt))
+
+
+def _sync_sites(fn, dev) -> dict:
+    """The host syncs of one ``fn()`` on the card, by the source line that
+    asked for them (sync debug mode "warn"); {} on the CPU."""
+    if dev.type != "cuda":
+        fn()
+        return {}
+    sync(dev)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sync(dev)
+    sites = collections.Counter(
+        f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    return dict(sites)
+
+
+def sfm_phase(dev, reps: int = 5, n_cams: int = BA_CAMS,
+              n_points: int = BA_POINTS, pnp_b: int = PNP_B,
+              pnp_rows: int = PNP_ROWS, pnp_valid: int = PNP_VALID,
+              table_dir: str | None = None) -> dict:
+    """Bundle adjustment and PnP on the card at the BA benchmark's size,
+    each against the port's run on the CPU from the same start (and the
+    same ranks), with its times, bounds, launches and host syncs; with
+    ``table_dir`` the profiler table of each timed call is written
+    there."""
+    from popsift_tpu_torch.sfm import ba as B
+    from popsift_tpu_torch.sfm import evaluate as E
+    from popsift_tpu_torch.sfm import pnp as P
+
+    cpu = torch.device("cpu")
+    size = dict(n_cams=n_cams, n_points=n_points)
+    out = {}
+
+    # one GN step of each kind on the card against the CPU. The scale
+    # gauge is fixed (camera 1 held too): with only camera 0 fixed, S's
+    # smallest eigenvalue is lam and the dense step along that direction
+    # is rounding (ROADMAP C). The same step in f64 on the CPU gives the
+    # f32 rounding floor: the dense step's f32 Schur complement cancels
+    # Hcc against B and sits about 1.5e-3 from the exact step at 100
+    # cameras / 4,000 points, so the card is held to 1e-3 or to twice
+    # that floor, whichever is larger
+    fields, _ = ba_scene(1, noise_px=0.5, **size)
+    fixed = fields["cam_fixed"].copy()
+    fixed[1] = True
+    step_fields = dict(fields, cam_fixed=fixed)
+    pc, pd = (B.problem_from_numpy(step_fields, d) for d in (cpu, dev))
+    p64 = pc._replace(**{k: getattr(pc, k).double()
+                         for k in ("cams", "points", "intr", "obs_uv")})
+    lam = {d: torch.full((), 1e-3, device=d) for d in (cpu, dev)}
+    n_obs = int(pc.obs_cam.shape[0])
+    check(B.dense_schur_feasible(n_cams, n_points),
+          "the dense Schur path does not fit the problem")
+    steps = {"dense": lambda p, l: B.schur_dense_step(p, l),
+             "cg": lambda p, l: B.schur_cg_step(p, l, cg_iters=25)}
+    for kind, step in steps.items():
+        ref = step(pc, lam[cpu])
+        got = step(pd, lam[dev])
+        exact = step(p64, lam[cpu].double())
+        cost_gap = abs(float(got[2]) - float(ref[2])) / float(ref[2])
+        gaps = {"dc": _gap(got[0], ref[0]), "dp": _gap(got[1], ref[1])}
+        floor = {"dc": _gap(ref[0], exact[0]), "dp": _gap(ref[1], exact[1])}
+        say(f"{kind} GN step, {n_cams} cameras / {n_points} points / "
+            f"{n_obs} observations: card against CPU cost {cost_gap:.3g} "
+            f"relative, dc {gaps['dc']:.3g} and dp {gaps['dp']:.3g} x the "
+            f"step's max; the CPU's f32 step against its f64 step: dc "
+            f"{floor['dc']:.3g}, dp {floor['dp']:.3g}")
+        check(cost_gap <= 1e-5, f"{kind} step: cost {cost_gap} off the CPU's")
+        check(all(gaps[k] <= max(1e-3, 2 * floor[k]) for k in gaps) and all(
+            bool(torch.isfinite(a).all()) for a in got[:2]),
+            f"{kind} step: {gaps} off the CPU's (f32 floor {floor})")
+        out[f"{kind}_step_gap"] = dict(card_cpu=gaps, f32_f64=floor)
+
+    # bundle_adjust(iters=10) on both paths: converges without noise,
+    # reaches the noise floor's ATE with 0.5 px, ends at the CPU's cost
+    paths = {"dense": dict(), "cg": dict(dense=False, cg_iters=25)}
+    for noise in (0.0, 0.5):
+        fields, cams_gt = ba_scene(2, noise_px=noise, **size)
+        pd = B.problem_from_numpy(fields, dev)
+        cost0 = _cost(B, pd)
+        C = E.camera_centers(cams_gt)
+        extent = float(np.linalg.norm(C.max(0) - C.min(0)))
+        for name, kw in paths.items():
+            res, costs = B.bundle_adjust(pd, iters=10, **kw)
+            cost1 = _cost(B, res)
+            ate = _ate_of(E, res.cams, cams_gt)
+            say(f"bundle_adjust {name}, {noise} px: cost {cost0:.6g} -> "
+                f"{cost1:.6g}, ATE {ate:.4g} over a {extent:.3g} extent")
+            check(bool(torch.isfinite(costs).all()), f"{name}: non-finite cost")
+            if noise == 0.0:
+                check(cost1 < 1e-4 * cost0, f"bundle_adjust {name} did not "
+                      f"converge: {cost0} -> {cost1}")
+                continue
+            check(ate <= 1e-3 * extent, f"bundle_adjust {name}: ATE {ate} "
+                  f"over a {extent} extent")
+            ref, _ = B.bundle_adjust(B.problem_from_numpy(fields, cpu),
+                                     iters=10, **kw)
+            ref_cost = _cost(B, ref)
+            gap = abs(cost1 - ref_cost) / ref_cost
+            say(f"bundle_adjust {name}, {noise} px: final cost {cost1:.8g} "
+                f"on the card, {ref_cost:.8g} on the CPU ({gap:.3g} "
+                f"relative)")
+            check(gap <= 1e-3, f"bundle_adjust {name}: final cost {gap} off "
+                  f"the CPU's")
+
+    # Huber against L2 with 5 % of the observations 80 px off
+    fields, cams_gt = ba_scene(3, noise_px=0.3, outliers=0.05, **size)
+    pd = B.problem_from_numpy(fields, dev)
+    ate_l2 = _ate_of(E, B.bundle_adjust(pd, iters=10)[0].cams, cams_gt)
+    for name, kw in paths.items():
+        res, costs = B.bundle_adjust(pd, iters=10, huber_delta=1.0, **kw)
+        ate_h = _ate_of(E, res.cams, cams_gt)
+        say(f"bundle_adjust {name}, Huber 1.0, 5 % outliers: ATE {ate_h:.4g}"
+            f" against L2's {ate_l2:.4g}")
+        check(float(costs[-1]) <= float(costs[0]) and ate_h < ate_l2 / 10,
+              f"Huber {name}: ATE {ate_h} against L2's {ate_l2}")
+
+    # the shared focal, dense joint solve, on the card against the CPU
+    ffields, f_true = focal_scene()
+    focal = {}
+    for d in (cpu, dev):
+        res, costs = B.bundle_adjust(B.problem_from_numpy(ffields, d),
+                                     iters=20, opt_intr=True,
+                                     intr_mask=(1.0, 1.0, 0.0, 0.0))
+        focal[d.type] = (res.intr.cpu().numpy(), float(costs[-1]))
+    (fi_d, c_d), (fi_c, c_c) = focal[dev.type], focal["cpu"]
+    f_err = float(np.abs(fi_d[:2] - f_true).max() / f_true)
+    f_gap = float(np.abs(fi_d - fi_c).max() / f_true)
+    say(f"opt_intr focal scene: focal {fi_d[:2].tolist()} (true {f_true}, "
+        f"{f_err:.3g} off), the CPU's {fi_c[:2].tolist()} ({f_gap:.3g} "
+        f"relative), final cost {c_d:.6g} / CPU {c_c:.6g}")
+    check(f_err < 0.005 and f_gap <= 1e-4
+          and abs(c_d - c_c) <= 1e-3 * c_c and bool(
+              np.array_equal(fi_d[2:], ffields["intr"][2:].astype(
+                  np.float32))), "opt_intr: focal off the truth or the CPU's")
+
+    # no host sync in the loop; two runs on the card, bit for bit?
+    fields, cams_gt = ba_scene(2, noise_px=0.5, **size)
+    pd = B.problem_from_numpy(fields, dev)
+    runs = {}
+    for name, kw in paths.items():
+        B.bundle_adjust(pd, iters=10, **kw)
+        sync(dev)
+        if dev.type == "cuda":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            r1 = B.bundle_adjust(pd, iters=10, **kw)
+        finally:
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+        r2 = B.bundle_adjust(pd, iters=10, **kw)
+        same = all(torch.equal(a, b) for a, b in zip(r1[0], r2[0])) \
+            and torch.equal(r1[1], r2[1])
+        diff = max(_gap(a, b) for a, b in zip(r1[0][:3], r2[0][:3]))
+        runs[name] = same
+        say(f"bundle_adjust {name}: ran under sync debug mode \"error\" (0 "
+            f"host syncs); two runs on the card bit-equal: {same} (largest "
+            f"difference {diff:.3g} x the field's max)")
+    out["ba_runs_bit_equal"] = runs
+
+    # PnP at IncrementalSfM's batch shape: the card against the CPU from the
+    # same ranks, the truth
+    X, x, valid, truth, R_gt, t_gt, depth = pnp_scene(4, pnp_b, pnp_rows,
+                                                      pnp_valid)
+    ranks = P.draw_ranks(torch.Generator().manual_seed(5), valid, 256, 6)
+    args = dict(thresh=PNP_THRESH, n_hyp=256, refine_iters=10)
+    ref = P.ransac_pnp_batch(None, X, x, valid, ranks=ranks, **args)
+    Xd, xd, vd, rd = X.to(dev), x.to(dev), valid.to(dev), ranks.to(dev)
+    got = P.PnPResult(*(a.cpu() for a in P.ransac_pnp_batch(
+        None, Xd, xd, vd, ranks=rd, **args)))
+
+    def pose_gap(a, b):
+        return (float((a.R - b.R).abs().max()),
+                float(((a.t - b.t).norm(dim=1) / b.t.norm(dim=1)).max()))
+
+    # the refinement fits the winning hypothesis's inliers, so the pose
+    # depends on which hypothesis wins, and the card's SVDs give some
+    # null vectors the other sign (pnp.py's docstring): the card is held
+    # to 1e-4 or to the spread of the CPU's own poses over two more rank
+    # draws, whichever is larger
+    spread = [pose_gap(P.ransac_pnp_batch(
+        torch.Generator().manual_seed(seed), X, x, valid, **args), ref)
+        for seed in (6, 7)]
+    R_tol = max(1e-4, max(g[0] for g in spread))
+    t_tol = max(1e-4, max(g[1] for g in spread))
+    R_err, t_err = pose_gap(got, ref)
+    # rows whose error under the CPU's pose lies within 1 % of the gate may
+    # fall either side
+    e_ref = torch.stack([P.reprojection_error2(ref.R[b:b + 1], ref.t[b:b + 1],
+                                               X[b], x[b])[0]
+                         for b in range(pnp_b)])
+    near = (e_ref - PNP_THRESH).abs() <= 0.01 * PNP_THRESH
+    differ = got.inliers != ref.inliers
+    n_valid = int(valid.sum())
+    say(f"ransac_pnp_batch B={pnp_b} x {pnp_rows} rows ({n_valid} valid, "
+        f"thresh {PNP_THRESH}): card against CPU R {R_err:.3g}, t "
+        f"{t_err:.3g} x |t| (the CPU against itself from other ranks: R "
+        f"{R_tol:.3g}, t {t_tol:.3g}), inlier masks differ on "
+        f"{int(differ.sum())} rows ({int((differ & ~near).sum())} off the "
+        f"gate's 1 % band)")
+    check(R_err <= R_tol and t_err <= t_tol, f"PnP: card against CPU R "
+          f"{R_err}, t {t_err}")
+    check(not bool((differ & ~near).any())
+          and int(differ.sum()) <= 1e-3 * n_valid,
+          f"PnP: inlier masks differ on {int(differ.sum())} rows")
+    ang = [float(np.arccos(np.clip((np.trace(R_gt[b] @ got.R[b].double()
+                                             .numpy().T) - 1) / 2, -1, 1)))
+           for b in range(pnp_b)]
+    # translation against the scene's scale: the inliers' 1e-3 noise puts
+    # |t - t_true| at 0.5-3.5e-3 for points 4-8 deep
+    terr = [float(np.linalg.norm(got.t[b].double().numpy() - t_gt[b])
+                  / depth[b]) for b in range(pnp_b)]
+    recall = float((got.inliers.numpy() & truth).sum() / truth.sum())
+    say(f"PnP against the truth: rotation {max(ang):.3g} rad, |t - t_true| "
+        f"{max(terr):.3g} x the median depth at most; {recall:.4f} of the "
+        f"true inliers kept")
+    check(max(ang) <= 1e-3 and max(terr) <= 1e-3,
+          f"PnP pose off the truth: {max(ang)} rad, {max(terr)} x depth")
+    pnp_syncs = _sync_sites(lambda: P.ransac_pnp_batch(
+        None, Xd, xd, vd, ranks=rd, **args), dev)
+    say(f"ransac_pnp_batch host syncs in one call: "
+        f"{sum(pnp_syncs.values())}, by source line {pnp_syncs}")
+    out["pnp_syncs"] = pnp_syncs
+
+    # times (CUDA events, median of reps), bounds, one profiler pass each
+    pd = B.problem_from_numpy(fields, dev)
+    ld = torch.full((), 1e-3, device=dev)
+    bounds = {k: _ba_bound_ms(n_cams, n_points, n_obs, k)
+              for k in ("dense", "cg")}
+    timed = {
+        "bundle_adjust_dense": (lambda: B.bundle_adjust(pd, iters=10),
+                                10 * bounds["dense"][0], bounds["dense"][1]),
+        "bundle_adjust_cg": (lambda: B.bundle_adjust(pd, iters=10,
+                                                     dense=False),
+                             10 * bounds["cg"][0], bounds["cg"][1]),
+        "schur_dense_step": (lambda: B.schur_dense_step(pd, ld),
+                             *bounds["dense"]),
+        "schur_cg_step": (lambda: B.schur_cg_step(pd, ld), *bounds["cg"]),
+        # scoring B x n_hyp x N (about 20 operations a pair) bounds it
+        "ransac_pnp_batch": (lambda: P.ransac_pnp_batch(
+            None, Xd, xd, vd, ranks=rd, **args),
+            *bound_ms(X.numel() * 4 * 2, pnp_b * 256 * pnp_rows * 20.0)),
+    }
+    times = {}
+    for name, (fn, b_ms, b_by) in timed.items():
+        ms = median_ms(fn, dev, reps, 1)
+        table = (os.path.join(table_dir, f"profile_{name}.txt")
+                 if table_dir else None)
+        counts = profile_counts(fn, dev, table)
+        idle = 1.0 - counts["device_busy_ms"] / ms
+        times[name] = dict(ms=round(ms, 4), bound_ms=round(b_ms, 4),
+                           bound_by=b_by,
+                           launch_calls=counts["launch_calls"],
+                           device_ops=counts["device_ops"],
+                           device_busy_ms=counts["device_busy_ms"],
+                           device_idle=round(idle, 4),
+                           stream_syncs=counts["stream_syncs"])
+        say(f"{name}: {ms:.3f} ms (CUDA events, median of {reps}), bound "
+            f"{b_ms:.4f} ms ({b_by}); one profiler pass: "
+            f"{counts['launch_calls']} launch calls, {counts['device_ops']} "
+            f"device ops, busy {counts['device_busy_ms']} ms, idle "
+            f"{idle:.1%}, {counts['stream_syncs']} stream syncs")
+        if name != "ransac_pnp_batch":
+            check(counts["stream_syncs"] == 0, f"{name}: stream syncs")
+    out["times"] = times
+    say("phase 9 times: " + json.dumps(times))
+    return out
+
+
 def profile_phase(frame: np.ndarray, dev, out_dir: str) -> None:
     """A torch.profiler table of one run of the main path, of the window
     route and of the chain front, written to DIR/profile*.txt."""
@@ -2193,6 +2666,8 @@ def main(argv=None) -> int:
     match_phase(frames, dev, launches)
     say("phase 8: variants")
     variants_phase(frames, dev)
+    say("phase 9: SfM geometry (bundle adjustment, PnP)")
+    sfm_phase(dev, table_dir=args.profile)
     for r in rows:
         r["launches"] = runs[LAUNCHES_FROM[r["name"]]][r["name"]]
         check(r["launches"] > 0, f"{r['name']} was launched no time in the "

@@ -151,16 +151,22 @@ def draw_ranks(generator: torch.Generator, valid: torch.Tensor,
     return raw.to(valid.device) % n[..., None, None]
 
 
+def rank_rows(ranks: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The row of ``valid`` [N] that holds the valid row of each rank in
+    ``ranks``: ``jnp.nonzero(valid, size=N, fill_value=0)[0][ranks]``, as
+    the JAX RANSACs map their sample ranks to rows."""
+    N = valid.shape[0]
+    pos = torch.where(valid, torch.cumsum(valid.to(torch.int64), 0) - 1, N)
+    rows = torch.zeros(N + 1, dtype=torch.int64, device=valid.device).scatter(
+        0, pos, torch.arange(N, device=valid.device))[:N]
+    return rows[ranks]
+
+
 def _ransac(ranks, x1, x2, valid, solver, err_fn, thresh):
     """Hypotheses from the valid rows of rank ``ranks`` [S, m], scored
     by MSAC over every valid row; the lowest score wins (twoview.py
     :119-135)."""
-    N = x1.shape[0]
-    # row of each rank: jnp.nonzero(valid, size=N, fill_value=0)
-    pos = torch.where(valid, torch.cumsum(valid.to(torch.int64), 0) - 1, N)
-    rows = torch.zeros(N + 1, dtype=torch.int64, device=x1.device).scatter(
-        0, pos, torch.arange(N, device=x1.device))[:N]
-    samples = rows[ranks]                                     # [S, m]
+    samples = rank_rows(ranks, valid)                         # [S, m]
     models = solver(x1[samples], x2[samples])                 # [S, 3, 3]
     err = torch.where(valid[None, :], err_fn(models, x1, x2), math.inf)
     inl = err < thresh

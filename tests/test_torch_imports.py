@@ -1,11 +1,13 @@
 """The port imports nothing of jax or of the JAX package, and its own
 copies of the shared plain-Python modules agree with the originals:
 ``SiftConfig`` field for field and default for default, the Gauss tables
-bit for bit.
+bit for bit, ``sfm/tracks.py`` class for class and function for function
+(source and fields).
 """
 
 import ast
 import dataclasses
+import inspect
 import os
 
 import numpy as np
@@ -13,8 +15,10 @@ import pytest
 
 from popsift_tpu import config as jconfig
 from popsift_tpu import gauss as jgauss
+from popsift_tpu.sfm import tracks as jtracks
 from popsift_tpu_torch import config as tconfig
 from popsift_tpu_torch import gauss as tgauss
+from popsift_tpu_torch.sfm import tracks as ttracks
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "popsift_tpu_torch")
@@ -48,8 +52,12 @@ def test_port_has_sources():
             "popsift_tpu_torch/runtime/build.py",
             "popsift_tpu_torch/ops/gridfilter.py",
             "popsift_tpu_torch/utils/profiling.py",
-            "popsift_tpu_torch/utils/device.py"} <= rel
-    assert len(rel) >= 32
+            "popsift_tpu_torch/utils/device.py",
+            "popsift_tpu_torch/sfm/tracks.py",
+            "popsift_tpu_torch/sfm/evaluate.py",
+            "popsift_tpu_torch/sfm/pnp.py",
+            "popsift_tpu_torch/sfm/ba.py"} <= rel
+    assert len(rel) >= 36
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -111,3 +119,25 @@ def test_gauss_tables_bit_equal(kw):
         assert np.array_equal(
             tgauss.full_kernel(tt.inc[l], int(tt.inc_span[l])),
             jgauss.full_kernel(jt.inc[l], int(jt.inc_span[l])))
+
+
+def test_tracks_copy_equals_the_original():
+    """The copy keeps the original's code: the same ``Tracks`` fields and
+    the same source for every other class and function."""
+    assert [(f.name, f.type) for f in dataclasses.fields(ttracks.Tracks)] \
+        == [(f.name, f.type) for f in dataclasses.fields(jtracks.Tracks)]
+    assert inspect.getsource(ttracks.Tracks.observations_of) \
+        == inspect.getsource(jtracks.Tracks.observations_of)
+    for name in ("_UnionFind", "build_tracks"):
+        assert inspect.getsource(getattr(ttracks, name)) \
+            == inspect.getsource(getattr(jtracks, name)), name
+
+
+@pytest.mark.parametrize("name", ["evaluate", "tracks"])
+def test_sfm_numpy_modules_import_no_jax_package(name):
+    """The port's numpy SfM modules stand alone: no import of jax or of
+    ``popsift_tpu``, nested ones (``evaluate.camera_centers`` in the
+    JAX package imports jax inside the function) included."""
+    path = os.path.join(PORT, "sfm", f"{name}.py")
+    tops = {m.split(".")[0] for m in _imported_modules(path)}
+    assert not tops & {"jax", "jaxlib", "popsift_tpu"}
