@@ -1,8 +1,9 @@
 """The port imports nothing of jax or of the JAX package, and its own
 copies of the shared plain-Python modules agree with the originals:
 ``SiftConfig`` field for field and default for default, the Gauss tables
-bit for bit, ``sfm/tracks.py`` class for class and function for function
-(source and fields).
+bit for bit, ``sfm/tracks.py``, ``sfm/export.py`` and
+``sfm/checkpoint.py`` class for class and function for function (source
+and fields), and the numpy classes of ``sfm/incremental.py``.
 """
 
 import ast
@@ -15,9 +16,15 @@ import pytest
 
 from popsift_tpu import config as jconfig
 from popsift_tpu import gauss as jgauss
+from popsift_tpu.sfm import checkpoint as jcheckpoint
+from popsift_tpu.sfm import export as jexport
+from popsift_tpu.sfm import incremental as jincremental
 from popsift_tpu.sfm import tracks as jtracks
 from popsift_tpu_torch import config as tconfig
 from popsift_tpu_torch import gauss as tgauss
+from popsift_tpu_torch.sfm import checkpoint as tcheckpoint
+from popsift_tpu_torch.sfm import export as texport
+from popsift_tpu_torch.sfm import incremental as tincremental
 from popsift_tpu_torch.sfm import tracks as ttracks
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -56,8 +63,15 @@ def test_port_has_sources():
             "popsift_tpu_torch/sfm/tracks.py",
             "popsift_tpu_torch/sfm/evaluate.py",
             "popsift_tpu_torch/sfm/pnp.py",
-            "popsift_tpu_torch/sfm/ba.py"} <= rel
-    assert len(rel) >= 36
+            "popsift_tpu_torch/sfm/ba.py",
+            "popsift_tpu_torch/sfm/export.py",
+            "popsift_tpu_torch/sfm/checkpoint.py",
+            "popsift_tpu_torch/sfm/incremental.py",
+            "popsift_tpu_torch/sfm/global_sfm.py",
+            "popsift_tpu_torch/tools/sfm_scenes.py",
+            "popsift_tpu_torch/tools/sfm_scale.py",
+            "popsift_tpu_torch/tools/step_spread.py"} <= rel
+    assert len(rel) >= 43
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -133,7 +147,26 @@ def test_tracks_copy_equals_the_original():
             == inspect.getsource(getattr(jtracks, name)), name
 
 
-@pytest.mark.parametrize("name", ["evaluate", "tracks"])
+@pytest.mark.parametrize("port,orig,names", [
+    (texport, jexport, ("_rot_to_quat", "write_colmap_text", "write_ply")),
+    (tcheckpoint, jcheckpoint, ("save_reconstruction", "load_reconstruction",
+                                "resume_incremental")),
+    (tincremental, jincremental, ("Reconstruction", "_PointView", "_pad"))],
+    ids=["export", "checkpoint", "incremental"])
+def test_numpy_copies_equal_the_originals(port, orig, names):
+    """The copies keep the original's code function for function, and
+    the two numpy modules define exactly the original's functions."""
+    for name in names:
+        assert inspect.getsource(getattr(port, name)) \
+            == inspect.getsource(getattr(orig, name)), name
+    if port is not tincremental:
+        functions = lambda m: sorted(n for n, v in vars(m).items()
+                                     if inspect.isfunction(v))
+        assert functions(port) == functions(orig) == sorted(names)
+
+
+@pytest.mark.parametrize("name", ["evaluate", "tracks", "export",
+                                  "checkpoint"])
 def test_sfm_numpy_modules_import_no_jax_package(name):
     """The port's numpy SfM modules stand alone: no import of jax or of
     ``popsift_tpu``, nested ones (``evaluate.camera_centers`` in the
