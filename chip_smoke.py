@@ -170,7 +170,32 @@ any failed phase raises and the script exits non-zero:
    solve (5e-4 x the scale), rotation averaging of 30 nodes
    (median error under 0.5 deg, max under 3); checkpoint and resume on
    the card against an uninterrupted run (centers within 1e-3, the same
-   point count); the wall time of each run.
+   point count); the wall time of each run;
+11. popsift-sfm (``cli/sfm.py``, ``sfm/retrieval.py``; no kernel of their
+   own) on the scene of the JAX package's E2E artifact
+   (``tools/e2e_proof.py::render_sequence``: 100 frames of 240 x 320):
+   (a) the frames' strongest descriptors extracted on the card,
+   ``train_codebook``, ``build_signatures`` and ``pair_shortlist`` on the
+   card against the CPU from the same sample and init scores (centers
+   within 1e-4 x the largest entry, signatures within 1e-5, the shortlist
+   equal pair for pair; ``top_k``'s tie order on the card), each timed;
+   (b) ``cli.sfm.main`` with ``--device cuda --retrieval 8 --refine``
+   and both exports, with every launch counter reset just before it:
+   K1, the compaction, K2, K3 and K4 launched once a frame and K5's
+   entries at least once, cameras.txt, images.txt, points3D.txt and the
+   PLY written; the wall of each stage (from the times its ``-v`` lines
+   were printed), one profiler pass of the middle ``register_next`` and
+   of one pair of the matching loop; then the same command with
+   ``--seed`` 1 to 6: the median of the seven runs at least
+   ``E2E_MIN_REGISTERED`` of 100 registered and an ATE at most
+   ``E2E_MAX_ATE_PCT`` % of the trajectory (see there why); (c)
+   ``--global`` on the first 40 frames with ``--seed`` 0 to 6, held to
+   the JAX CLI's result on a CPU: the median registered count at least
+   JAX's minus 2, the best ATE at most twice JAX's or 5 % of the
+   trajectory (see ``GLOBAL_SEEDS`` why); (d) the first 6 frames on the
+   card and on the CPU with the same ``--seed``: equal keypoint and track
+   counts, each pair's match count within 0.5 %, the same registered
+   cameras.
 
 TF32 is switched off for matmuls and cuDNN (the plain versions must run
 in full f32). The second line before the last is a JSON object with one
@@ -181,7 +206,7 @@ device record. ``--profile DIR`` also writes a torch.profiler table of
 one run of the main path, of the window route and of the chain front to
 DIR/profile*.txt and prints each run's counts, and phase 9's tables of
 each timed SfM call. Phase 10 alone: ``drivers_phase(torch.device(
-"cuda"))``.
+"cuda"))``; phase 11: ``sfm_cli_phase`` after ``build_phase()``.
 """
 
 from __future__ import annotations
@@ -3122,6 +3147,357 @@ def drivers_phase(dev, n_inc: int = INC_CAMS, n_inc_points: int = INC_POINTS,
     return out
 
 
+# phase 11: popsift-sfm on E2E_r05.json's scene (scripts/e2e_proof.py)
+E2E_FRAMES, E2E_HW = 100, (240, 320)
+E2E_TOP_M = 8                  # --retrieval 8, as the artifact's command
+# The scene's ATE is a chaotic function of rounding and draws (ROADMAP C):
+# popsift_tpu.cli.sfm with this command on a CPU registers 100 and ends at
+# 5.47 % of the trajectory (its seed-0 draws; the artifact's 3.11 % is not
+# reproduced; its driver from seeds 1-4 ends at 1.7-3.3 %), and the port's
+# runs spread from 1.2 % to 23 % on the card, a seventh of them past 10.9 %.
+# One run would test the draw, so the run is made from E2E_SEEDS draws
+# (--seed) and their medians are gated: at least 98 registered, ATE at most
+# twice JAX's or 5 %, whichever is larger (the rule of the --global check)
+E2E_SEEDS = (0, 1, 2, 3, 4, 5, 6)
+E2E_MIN_REGISTERED = 98
+JAX_E2E_ATE_PCT = 5.471
+E2E_MAX_ATE_PCT = max(2 * JAX_E2E_ATE_PCT, 5.0)
+GLOBAL_E2E_FRAMES = 40         # phase 10's global_sfm size
+# popsift_tpu.cli.sfm --global --retrieval 8 --min-covis 30 on the first 40
+# frames, on a CPU (PERF.md §6): every camera, ATE 0.016431. Its
+# global_sfm from seeds 0-5 on those tracks ends either near that (1.1-1.6
+# % of the trajectory) or collapsed (27-29 %), three times each, and the
+# port's runs split the same way; so --global runs from GLOBAL_SEEDS and
+# the best ATE is gated, with the median registered count
+GLOBAL_SEEDS = (0, 1, 2, 3, 4, 5, 6)
+JAX_GLOBAL_REGISTERED, JAX_GLOBAL_ATE = 40, 0.016431
+CLI_PARITY_FRAMES = 6
+PAIR_NEAR_TIE = 0.005          # a pair's match count, card against CPU
+
+
+class _StampedLines:
+    """A stdout stand-in that keeps each printed line with the host clock
+    at which it was completed."""
+
+    def __init__(self):
+        self.lines, self._part = [], ""
+
+    def write(self, s: str) -> int:
+        parts = (self._part + s).split("\n")
+        self._part = parts.pop()
+        now = time.perf_counter()
+        self.lines += [(now, l) for l in parts]
+        return len(s)
+
+    def flush(self) -> None:
+        pass
+
+
+def _run_cli(main, argv: list) -> tuple:
+    """(exit code, [(time, line)], start time) of one in-process CLI run
+    with its standard output kept, not printed."""
+    import contextlib
+    out = _StampedLines()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    out.lines.append((time.perf_counter(), "<end>"))
+    return rc, out.lines, t0
+
+
+def _stage_walls(lines: list, t0: float) -> dict:
+    """Seconds of each stage of a ``-v`` popsift-sfm run from the times
+    its lines were printed: each stage ends with the last line it prints
+    (extraction with the last ``image``, matching with the last ``pair``,
+    registration with the last ``registered image``)."""
+    def last(prefix):
+        return max((t for t, l in lines if l.startswith(prefix)), default=None)
+    marks = [("extraction", last("image ")),
+             ("retrieval", last("retrieval shortlist:")),
+             ("matching", last("pair (")), ("tracks", last("tracks:")),
+             ("initialize", last("seed pair:") or last("global SfM:")),
+             ("registration", last("registered image ")),
+             ("final_ba", last("final BA cost:")),
+             ("refine", last("refined BA cost:")),
+             ("export", lines[-1][0])]
+    walls, prev = {}, t0
+    for name, t in marks:
+        if t is not None:
+            walls[name] = round(t - prev, 4)
+            prev = t
+    walls["total"] = round(lines[-1][0] - t0, 4)
+    return walls
+
+
+def _cli_counts(lines: list) -> dict:
+    """The per-image keypoint counts, per-pair match counts and the track
+    count a ``-v`` popsift-sfm run printed."""
+    text = [l for _, l in lines]
+    num = lambda l: int(re.search(r": (\d+)", l).group(1))
+    return {"keypoints": [num(l) for l in text if l.startswith("image ")],
+            "pairs": {l.split(":")[0]: num(l) for l in text
+                      if l.startswith("pair (")},
+            "tracks": [num(l) for l in text if l.startswith("tracks:")]}
+
+
+def sfm_cli_phase(dev, n_frames: int = E2E_FRAMES, hw: tuple = E2E_HW,
+                  n_global: int = GLOBAL_E2E_FRAMES,
+                  n_parity: int = CLI_PARITY_FRAMES,
+                  min_registered: int = E2E_MIN_REGISTERED,
+                  seeds: tuple = E2E_SEEDS,
+                  global_seeds: tuple = GLOBAL_SEEDS) -> dict:
+    """popsift-sfm (``cli/sfm.py``) on the card on the scene of the JAX
+    package's E2E artifact (``tools/e2e_proof.py::render_sequence``, 100
+    frames of 240 x 320): (a) retrieval of the frames' descriptors on the
+    card against the CPU; (b) the images-to-model run, ``--retrieval 8
+    --refine`` and both exports, with the launch counters reset just
+    before it, each stage's wall and one profiled ``register_next``, then
+    the same command from the other ``seeds``, their median registered
+    count and ATE gated; (c)
+    ``--global`` on the first 40 frames from ``global_seeds``, against
+    the JAX CLI's CPU result;
+    (d) 6 frames on the card and on the CPU from the same ``--seed``.
+    Returns the figures."""
+    import tempfile
+
+    from popsift_tpu_torch.api import PopSift
+    from popsift_tpu_torch.cli import sfm as sfm_cli
+    from popsift_tpu_torch.config import SiftConfig
+    from popsift_tpu_torch.eval.repeatability import \
+        strongest_descriptor_per_keypoint
+    from popsift_tpu_torch.io.image import write_pgm
+    from popsift_tpu_torch.ops import kernels
+    from popsift_tpu_torch.ops.matching import match_descriptors
+    from popsift_tpu_torch.sfm import incremental as I
+    from popsift_tpu_torch.sfm import retrieval as R
+    from popsift_tpu_torch.tools.e2e_proof import ate_report, render_sequence
+    from popsift_tpu_torch.tools.sfm_scale import DeviceTimer
+
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+    out = {}
+    frames, gt, (fx, fy, cx, cy) = render_sequence(n_frames, *hw)
+    tmp = tempfile.TemporaryDirectory()
+    work = tmp.name
+    paths = []
+    for i, fr in enumerate(frames):
+        paths.append(os.path.join(work, f"frame_{i:04d}.pgm"))
+        write_pgm(paths[-1], fr)
+    intr = ["--fx", str(fx), "--fy", str(fy), "--cx", str(cx), "--cy",
+            str(cy)]
+    timer = DeviceTimer(dev)
+
+    # (a) retrieval: the frames' strongest descriptors extracted on the
+    # card as the CLI takes them, codebook, signatures and shortlist on the
+    # card and on the CPU from the same sample and init scores
+    ps = PopSift(SiftConfig(), device=dev)
+    jobs = [ps.enqueue(fr) for fr in frames]
+    descs = {i: strongest_descriptor_per_keypoint(j.get())[1]
+             for i, j in enumerate(jobs)}
+    res, ms = {}, {}
+    for d in (dev, cpu):
+        tm = DeviceTimer(d)
+        c, s_c = tm.elapsed(R.train_codebook, (descs,), dict(device=d))
+        s, s_s = tm.elapsed(R.build_signatures, (descs,), dict(device=d))
+        p, s_p = tm.elapsed(R.pair_shortlist, (s,), dict(top_m=E2E_TOP_M,
+                                                         device=d))
+        v, s_v = tm.elapsed(R.vlad_signature, (descs[0], np.ones(
+            len(descs[0]), bool), c), dict(device=d))
+        res[d.type] = (c.cpu(), s.cpu(), p)
+        ms[d.type] = dict(train_codebook=s_c * 1e3, build_signatures=s_s
+                          * 1e3, pair_shortlist=s_p * 1e3,
+                          vlad_signature_one_image=s_v * 1e3)
+    (cc, sc, pc), (cr, sr, pr) = res[dev.type], res["cpu"]
+    c_gap = float((cc - cr).abs().max() / cr.abs().max())
+    s_gap = float((sc - sr).abs().max())
+    vals = torch.tensor([1.0, 3.0, 3.0, 0.0, 3.0, -0.0, 0.0, 3.0])
+    ties = R.top_k(vals.to(dev), 8).cpu().tolist()
+    out["retrieval"] = dict(rows=sum(len(x) for x in descs.values()),
+                            center_gap=c_gap, signature_gap=s_gap,
+                            pairs=len(pc), ms=ms, top_k_ties=ties)
+    say(f"retrieval, {n_frames} frames ({out['retrieval']['rows']} "
+        f"descriptors): card against CPU, centers {c_gap:.3g} x the largest "
+        f"entry apart, signatures {s_gap:.3g}, shortlist {len(pc)} / "
+        f"{len(pr)} pairs, equal: {pc == pr}; top_k of ties on the card "
+        f"{ties}; ms (CUDA events on the card, host clock on the CPU): "
+        f"{json.dumps(ms)}")
+    check(c_gap <= 1e-4, f"codebook {c_gap} x its max from the CPU's")
+    check(s_gap <= 1e-5, f"signatures {s_gap} from the CPU's")
+    check(pc == pr, "the card's shortlist differs from the CPU's")
+    check(ties == [1, 2, 4, 7, 0, 3, 6, 5], f"top_k's tie order {ties}")
+
+    # (b) the images-to-model run, as tools/e2e_proof.py runs it, with
+    # the launch counters reset just before it and one register_next in the
+    # middle profiled; then the same from the other seeds' draws
+    rec = os.path.join(work, "rec.npz")
+    sparse, ply = os.path.join(work, "sparse"), os.path.join(work, "c.ply")
+    prof, calls = {}, []
+    register_next = I.IncrementalSfM.register_next
+
+    def profiled_register_next(self):
+        calls.append(None)
+        if len(calls) != n_frames // 2:
+            return register_next(self)
+        r, counts, sites, wall = _profiled(lambda: register_next(self), dev)
+        prof.update(counts, wall_ms=round(wall, 3), sync_sites=sites,
+                    device_idle=round(1 - counts["device_busy_ms"] / wall, 4))
+        return r
+
+    def e2e_run(seed, extra=()):
+        rc, lines, t0 = _run_cli(sfm_cli.main, ["-i"] + paths + intr + [
+            "--device", dev.type, "--retrieval", str(E2E_TOP_M), "--refine",
+            "--seed", str(seed), "--export", rec, "-v", *extra])
+        check(rc == 0, f"popsift-sfm --seed {seed} exited {rc}")
+        return lines, t0, ate_report(rec, gt)
+
+    I.IncrementalSfM.register_next = profiled_register_next
+    try:
+        kernels.reset_launch_counts()
+        lines, t0, ate = e2e_run(seeds[0], ("--export-colmap", sparse,
+                                            "--export-ply", ply))
+        launches = kernels.launch_counts()
+    finally:
+        I.IncrementalSfM.register_next = register_next
+    walls = _stage_walls(lines, t0)
+    text = [l for _, l in lines]
+    n_pairs = sum(l.startswith("pair (") for l in text)
+    files = {f: os.path.getsize(os.path.join(sparse, f))
+             for f in ("cameras.txt", "images.txt", "points3D.txt")}
+    summary = [l for l in text if l.startswith(
+        ("retrieval shortlist", "tracks:", "seed pair", "final BA",
+         "refined BA"))]
+    out["e2e"] = dict(walls_s=walls, pairs=n_pairs, ate=ate,
+                      ms_per_pair=round(1e3 * walls["matching"] / n_pairs, 3),
+                      launches={k: v for k, v in launches.items() if v},
+                      register_next_profiled=prof, colmap_bytes=files,
+                      ply_bytes=os.path.getsize(ply), lines=summary)
+    say(f"popsift-sfm, {n_frames} frames of {hw[0]} x {hw[1]}, --retrieval "
+        f"{E2E_TOP_M} --refine --seed {seeds[0]}: {summary}; "
+        f"{ate['registered']}/{n_frames} registered, ATE {ate['rmse']:.4g} = "
+        f"{ate['rmse_pct_of_traj']:.3g} % of the {ate['trajectory_length']:.3g}"
+        f" trajectory; stage walls (s, host clock): {json.dumps(walls)}; "
+        f"{n_pairs} pairs, {out['e2e']['ms_per_pair']} ms a pair; launches "
+        f"{out['e2e']['launches']}; exports {files}, PLY "
+        f"{out['e2e']['ply_bytes']} bytes")
+    say(f"register_next #{n_frames // 2} under the profiler: "
+        f"{json.dumps(prof)}")
+    for name in ONCE + ("refine_octaves",):
+        check(launches[name] == n_frames, f"{name} launched "
+              f"{launches[name]} times for {n_frames} frames")
+    for name in MAIN_PATH:
+        check(launches[name] >= n_frames, f"{name} launched "
+              f"{launches[name]} times for {n_frames} frames")
+    check(all(v > 0 for v in files.values()) and out["e2e"]["ply_bytes"] > 0,
+          f"exports {files}")
+    check(bool(prof) and prof["launch_calls"] > 0,
+          "no register_next was profiled")
+    runs = [dict(seed=seeds[0], registered=ate["registered"],
+                 ate_pct=ate["rmse_pct_of_traj"], wall_s=walls["total"])]
+    for seed in seeds[1:]:
+        lines, t0, a = e2e_run(seed)
+        runs.append(dict(seed=seed, registered=a["registered"],
+                         ate_pct=a["rmse_pct_of_traj"],
+                         wall_s=round(lines[-1][0] - t0, 4)))
+    med_reg = statistics.median(r["registered"] for r in runs)
+    med_ate = statistics.median(r["ate_pct"] for r in runs)
+    out["e2e"]["seeds"] = runs
+    say(f"popsift-sfm from {len(runs)} seeds' draws: {json.dumps(runs)}; "
+        f"median {med_reg} registered, ATE {med_ate:.3g} % of the trajectory "
+        f"(gates: >= {min_registered}, <= {E2E_MAX_ATE_PCT:.3g} %; the JAX "
+        f"CLI on a CPU: 100, {JAX_E2E_ATE_PCT} %)")
+    check(med_reg >= min_registered,
+          f"median registered {med_reg}/{n_frames}")
+    check(med_ate <= E2E_MAX_ATE_PCT,
+          f"median ATE {med_ate} % of the trajectory")
+
+    # one pair of the matching loop, as the CLI runs it, under the profiler
+    cap = max(256, 1 << (max(len(d) for d in descs.values()) - 1)
+              .bit_length())
+
+    def one_pair(i=0, j=1):
+        on_dev = lambda a: torch.from_numpy(a).to(dev)
+        r = match_descriptors(
+            on_dev(sfm_cli.pad_to(descs[i], cap)),
+            on_dev(np.arange(cap) < len(descs[i])),
+            on_dev(sfm_cli.pad_to(descs[j], cap)),
+            on_dev(np.arange(cap) < len(descs[j])))
+        rows = np.nonzero(r.accept.cpu().numpy())[0]
+        return r.best_idx.cpu().numpy()[rows]
+
+    one_pair()
+    _, counts, sites, wall = _profiled(one_pair, dev)
+    out["e2e"]["pair_profiled"] = dict(
+        counts, wall_ms=round(wall, 3), sync_sites=sites,
+        device_idle=round(1 - counts["device_busy_ms"] / wall, 4))
+    say(f"one pair of the matching loop ({cap} padded rows) under the "
+        f"profiler: {json.dumps(out['e2e']['pair_profiled'])}")
+
+    # (c) --global on the first 40 frames, the JAX CLI's command, from
+    # each of global_seeds' draws
+    rec_g = os.path.join(work, "rec_global.npz")
+    glob = []
+    for seed in global_seeds:
+        rc, lines, t0 = _run_cli(sfm_cli.main, ["-i"] + paths[:n_global]
+                                 + intr + ["--device", dev.type, "--global",
+                                           "--retrieval", str(E2E_TOP_M),
+                                           "--min-covis", "30", "--seed",
+                                           str(seed), "--export", rec_g,
+                                           "-v"])
+        check(rc == 0, f"popsift-sfm --global --seed {seed} exited {rc}")
+        a = ate_report(rec_g, gt[:n_global])
+        glob.append(dict(seed=seed, registered=a["registered"],
+                         ate=a["rmse"], ate_pct=a["rmse_pct_of_traj"],
+                         wall_s=round(lines[-1][0] - t0, 4), lines=[
+                             l for _, l in lines if l.startswith(
+                                 ("tracks:", "global SfM"))]))
+    max_ate = max(2 * JAX_GLOBAL_ATE, 0.05 * a["trajectory_length"])
+    med_reg = statistics.median(g["registered"] for g in glob)
+    best = min(g["ate"] for g in glob)
+    out["global"] = dict(runs=glob, walls_s=_stage_walls(lines, t0))
+    say(f"popsift-sfm --global, first {n_global} frames, from "
+        f"{len(glob)} seeds' draws: {json.dumps(glob)}; median "
+        f"{med_reg} registered, best ATE {best:.4g} (gates: >= "
+        f"{min(JAX_GLOBAL_REGISTERED, n_global) - 2}, <= {max_ate:.4g}; the "
+        f"JAX CLI on a CPU: {JAX_GLOBAL_REGISTERED}, {JAX_GLOBAL_ATE}); last "
+        f"run's walls {json.dumps(out['global']['walls_s'])}")
+    check(med_reg >= min(JAX_GLOBAL_REGISTERED, n_global) - 2,
+          f"--global median registered {med_reg}")
+    check(best <= max_ate, f"--global best ATE {best} above {max_ate}")
+
+    # (d) the first 6 frames on the card and on the CPU, the same --seed
+    runs = {}
+    for d in (dev, cpu):
+        r = os.path.join(work, f"rec6_{d.type}.npz")
+        rc, lines, t0 = _run_cli(sfm_cli.main, ["-i"] + paths[:n_parity]
+                                 + intr + ["--device", d.type, "--seed", "3",
+                                           "--export", r, "-v"])
+        check(rc == 0, f"popsift-sfm on {n_parity} frames on {d} exited {rc}")
+        runs[d.type] = dict(_cli_counts(lines), wall=lines[-1][0] - t0,
+                            registered=sorted(int(c) for c in
+                                              np.load(r)["registered"]))
+    a, b = runs[dev.type], runs["cpu"]
+    gaps = {p: abs(a["pairs"][p] - n) / max(n, 1)
+            for p, n in b["pairs"].items()}
+    near = {p: (a["pairs"][p], b["pairs"][p]) for p, g in gaps.items() if g}
+    out["parity"] = dict(card=a, cpu=b, near_ties=near)
+    say(f"popsift-sfm, first {n_parity} frames, --seed 3, card against CPU: "
+        f"keypoints {a['keypoints']} / {b['keypoints']}, tracks "
+        f"{a['tracks']} / {b['tracks']}, pairs differing {near}, registered "
+        f"{a['registered']} / {b['registered']}; {a['wall']:.2f} / "
+        f"{b['wall']:.2f} s")
+    check(a["keypoints"] == b["keypoints"], "keypoint counts differ")
+    check(a["tracks"] == b["tracks"], "track counts differ")
+    check(sorted(a["pairs"]) == sorted(b["pairs"])
+          and max(gaps.values()) <= PAIR_NEAR_TIE,
+          f"match counts differ past {PAIR_NEAR_TIE}: {near}")
+    check(a["registered"] == b["registered"], "registered sets differ")
+
+    tmp.cleanup()
+    out["wall_s"] = round(time.perf_counter() - t_phase, 3)
+    say(f"phase 11 took {out['wall_s']} s")
+    return out
+
+
 def profile_phase(frame: np.ndarray, dev, out_dir: str) -> None:
     """A torch.profiler table of one run of the main path, of the window
     route and of the chain front, written to DIR/profile*.txt."""
@@ -3182,6 +3558,8 @@ def main(argv=None) -> int:
     sfm_phase(dev, table_dir=args.profile)
     say("phase 10: SfM drivers (incremental, global)")
     drivers_phase(dev)
+    say("phase 11: popsift-sfm, images to model")
+    sfm_cli_phase(dev)
     for r in rows:
         r["launches"] = runs[LAUNCHES_FROM[r["name"]]][r["name"]]
         check(r["launches"] > 0, f"{r['name']} was launched no time in the "

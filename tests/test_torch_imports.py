@@ -1,13 +1,16 @@
 """The port imports nothing of jax or of the JAX package, and its own
 copies of the shared plain-Python modules agree with the originals:
 ``SiftConfig`` field for field and default for default, the Gauss tables
-bit for bit, ``sfm/tracks.py``, ``sfm/export.py`` and
-``sfm/checkpoint.py`` class for class and function for function (source
-and fields), and the numpy classes of ``sfm/incremental.py``.
+bit for bit, ``sfm/tracks.py``, ``sfm/export.py``,
+``sfm/checkpoint.py`` and ``eval/repeatability.py`` class for class and
+function for function (source and fields), the numpy classes of
+``sfm/incremental.py``, and ``tools/e2e_proof.py::render_sequence``
+(scripts/e2e_proof.py's scene).
 """
 
 import ast
 import dataclasses
+import importlib.util
 import inspect
 import os
 
@@ -16,12 +19,14 @@ import pytest
 
 from popsift_tpu import config as jconfig
 from popsift_tpu import gauss as jgauss
+from popsift_tpu.eval import repeatability as jrepeatability
 from popsift_tpu.sfm import checkpoint as jcheckpoint
 from popsift_tpu.sfm import export as jexport
 from popsift_tpu.sfm import incremental as jincremental
 from popsift_tpu.sfm import tracks as jtracks
 from popsift_tpu_torch import config as tconfig
 from popsift_tpu_torch import gauss as tgauss
+from popsift_tpu_torch.eval import repeatability as trepeatability
 from popsift_tpu_torch.sfm import checkpoint as tcheckpoint
 from popsift_tpu_torch.sfm import export as texport
 from popsift_tpu_torch.sfm import incremental as tincremental
@@ -70,8 +75,12 @@ def test_port_has_sources():
             "popsift_tpu_torch/sfm/global_sfm.py",
             "popsift_tpu_torch/tools/sfm_scenes.py",
             "popsift_tpu_torch/tools/sfm_scale.py",
-            "popsift_tpu_torch/tools/step_spread.py"} <= rel
-    assert len(rel) >= 43
+            "popsift_tpu_torch/tools/step_spread.py",
+            "popsift_tpu_torch/eval/repeatability.py",
+            "popsift_tpu_torch/sfm/retrieval.py",
+            "popsift_tpu_torch/cli/sfm.py",
+            "popsift_tpu_torch/tools/e2e_proof.py"} <= rel
+    assert len(rel) >= 61
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -151,18 +160,42 @@ def test_tracks_copy_equals_the_original():
     (texport, jexport, ("_rot_to_quat", "write_colmap_text", "write_ply")),
     (tcheckpoint, jcheckpoint, ("save_reconstruction", "load_reconstruction",
                                 "resume_incremental")),
-    (tincremental, jincremental, ("Reconstruction", "_PointView", "_pad"))],
-    ids=["export", "checkpoint", "incremental"])
+    (tincremental, jincremental, ("Reconstruction", "_PointView", "_pad")),
+    (trepeatability, jrepeatability, ("project", "PairScores",
+                                      "evaluate_pair",
+                                      "strongest_descriptor_per_keypoint",
+                                      "warp_image", "synthetic_scene",
+                                      "protocol_homographies"))],
+    ids=["export", "checkpoint", "incremental", "repeatability"])
 def test_numpy_copies_equal_the_originals(port, orig, names):
-    """The copies keep the original's code function for function, and
-    the two numpy modules define exactly the original's functions."""
+    """The copies keep the original's code class for class and function
+    for function, and the numpy modules define exactly the original's
+    functions."""
     for name in names:
         assert inspect.getsource(getattr(port, name)) \
             == inspect.getsource(getattr(orig, name)), name
     if port is not tincremental:
-        functions = lambda m: sorted(n for n, v in vars(m).items()
-                                     if inspect.isfunction(v))
-        assert functions(port) == functions(orig) == sorted(names)
+        functions = lambda m: sorted(
+            n for n, v in vars(m).items()
+            if inspect.isfunction(v) and v.__module__ == m.__name__)
+        assert functions(port) == functions(orig) \
+            == sorted(n for n in names if inspect.isfunction(getattr(orig, n)))
+
+
+def test_render_sequence_copy_equals_the_original():
+    """The port's E2E tool renders scripts/e2e_proof.py's scene: the same
+    source, and the same frames, centers and intrinsics."""
+    from popsift_tpu_torch.tools import e2e_proof as tproof
+    spec = importlib.util.spec_from_file_location(
+        "_jax_e2e_proof", os.path.join(REPO, "scripts", "e2e_proof.py"))
+    jproof = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jproof)
+    assert inspect.getsource(tproof.render_sequence) \
+        == inspect.getsource(jproof.render_sequence)
+    (tf, tc, ti), (jf, jc, ji) = (m.render_sequence(3, 24, 32)
+                                  for m in (tproof, jproof))
+    assert ti == ji and np.array_equal(tc, jc)
+    assert all(np.array_equal(a, b) for a, b in zip(tf, jf))
 
 
 @pytest.mark.parametrize("name", ["evaluate", "tracks", "export",

@@ -76,7 +76,7 @@ def test_cuda_without_a_card_raises(pgm_pairs):
 @pytest.mark.parametrize("flag", [["--desc-mode", "grid"],
                                   ["--gauss-mode", "fixed9"]],
                          ids=["desc_mode", "gauss_mode"])
-def test_unported_variants_raise(pgm_pairs, flag, capsys):
+def test_variants_match_jax_head_lines(pgm_pairs, flag, capsys):
     """The variants the port once refused now run: the same head lines as
     the JAX CLI with the same flag."""
     port = _run(port_match, pgm_pairs["small"] + ["--device", "cpu"] + flag,
