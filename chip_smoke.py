@@ -195,7 +195,32 @@ any failed phase raises and the script exits non-zero:
    trajectory (see ``GLOBAL_SEEDS`` why); (d) the first 6 frames on the
    card and on the CPU with the same ``--seed``: equal keypoint and track
    counts, each pair's match count within 0.5 %, the same registered
-   cameras.
+   cameras;
+12. the multi-device layer (``parallel/``, ``sfm/distributed.py``; no
+   kernel of its own: each rank runs the main path's kernels): (a) world
+   size 1 on NCCL, ``make_batched_extract_fn(match_pairs=True)`` of the
+   four frames with every launch counter reset just before it: each
+   kernel of the batch path launched as by ``extract_batch`` (K1, the
+   compaction, K2, K3 and K4 once), the features bit-equal to
+   ``extract_batch``, 2110 / 2505 on frame 0, the four ring pairs
+   bit-equal to ``match_descriptors``, no stream sync under
+   ``set_sync_debug_mode("error")``, ms/frame beside ``extract_batch`` in
+   turns; (c) all-pairs over the frames' first ``AP_ROWS`` valid
+   descriptors, every pair bit-equal to ``match_descriptors`` alone; (d)
+   distributed BA at phase 9's size, dense and CG: the final cost within
+   ``BA_COST_TOL`` of ``bundle_adjust``'s, the first f64 GN step within
+   1e-9 x its max of the single-process f64 step, the LM loop with no
+   host sync, ms beside ``bundle_adjust`` in turns; (e) edge-sharded
+   rotation and translation averaging of ``AVG_NODES`` nodes: rotations
+   within ``ROTATION_TOL`` of the single-process solve, the f64
+   translations within ``TRANSLATION_F32_TOL`` x the scale (the f32 ones
+   read, see ``_check_avg``); then (b)-(e) on two processes sharing the
+   card on gloo (``parallel_rank``): each rank's kernels launched once
+   for its two frames, the gathered features and ring pairs (1->2, 3->0
+   across the ranks) against (a) by phase 5's rule, all-pairs equal to
+   (a), BA and averaging as above, and the times of the host-staged
+   collectives; (f) ``tools/dryrun_multichip.py`` at world size 2 on the
+   card.
 
 TF32 is switched off for matmuls and cuDNN (the plain versions must run
 in full f32). The second line before the last is a JSON object with one
@@ -206,7 +231,9 @@ device record. ``--profile DIR`` also writes a torch.profiler table of
 one run of the main path, of the window route and of the chain front to
 DIR/profile*.txt and prints each run's counts, and phase 9's tables of
 each timed SfM call. Phase 10 alone: ``drivers_phase(torch.device(
-"cuda"))``; phase 11: ``sfm_cli_phase`` after ``build_phase()``.
+"cuda"))``; phase 11: ``sfm_cli_phase`` after ``build_phase()``; phase
+12: ``parallel_phase(frames, dev, card)`` after ``build_phase()`` (run
+from a file: its ranks are spawned processes that import ``__main__``).
 """
 
 from __future__ import annotations
@@ -216,6 +243,7 @@ import collections
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3498,6 +3526,510 @@ def sfm_cli_phase(dev, n_frames: int = E2E_FRAMES, hw: tuple = E2E_HW,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the multi-device layer (parallel/, sfm/distributed.py) at world
+# size 1 (NCCL) and 2 (two processes sharing the card, gloo)
+# ---------------------------------------------------------------------------
+
+AP_ROWS = 4096        # all-pairs: each frame's first 4096 valid descriptors
+AVG_NODES = 1000      # edge-sharded averaging: a chain plus 4 edges a node
+BA_COST_TOL = 1e-3    # distributed BA's final cost against bundle_adjust's
+ROTATION_TOL = 2e-4   # tests/test_sfm_distributed.py:229-236
+
+
+def averaging_graph(n: int = AVG_NODES, seed: int = 3) -> tuple:
+    """tests/test_sfm_distributed.py:176-200's view graph at ``n`` nodes:
+    rotations exp(N(0, 1)), centres U(-5, 5)^3, a chain plus 4n random
+    edges (about 5 a node), exact relative rotations and unit
+    directions. Returns (n, ei, ej, R_rel, d, the true centres)."""
+    from popsift_tpu_torch.sfm.rotation import exp_so3
+    rng = np.random.default_rng(seed)
+    R_gt = exp_so3(torch.from_numpy(
+        rng.normal(0, 1, (n, 3)).astype(np.float32))).numpy()
+    C_gt = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
+    ei, ej = list(range(n - 1)), list(range(1, n))
+    for _ in range(4 * n):
+        i, j = rng.integers(0, n, 2)
+        if i != j:
+            ei.append(min(i, j))
+            ej.append(max(i, j))
+    ei, ej = np.asarray(ei, np.int64), np.asarray(ej, np.int64)
+    R_rel = np.einsum("eab,ecb->eac", R_gt[ej], R_gt[ei]).astype(np.float32)
+    d = C_gt[ej] - C_gt[ei]
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    return n, ei, ej, R_rel, d, C_gt
+
+
+def _timed(fn, dev, mesh=None) -> tuple:
+    """(CUDA-event ms, host-wall ms) of one ``fn()`` ending in a
+    synchronize; with a mesh of several ranks, all start together (a
+    ``psum`` first). Host walls only on the CPU."""
+    from popsift_tpu_torch.parallel.mesh import psum
+    if mesh is not None:
+        psum(torch.zeros(1, device=dev), mesh)
+    sync(dev)
+    if dev.type == "cuda":
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+    t0 = time.perf_counter()
+    fn()
+    if dev.type == "cuda":
+        b.record()
+    sync(dev)
+    wall = (time.perf_counter() - t0) * 1e3
+    return (a.elapsed_time(b) if dev.type == "cuda" else wall), wall
+
+
+def _turns(fns: dict, dev, reps: int, mesh=None) -> dict:
+    """Each of ``fns`` timed ``reps`` times in turns (forward, then
+    backward: a, b, b, a, ...) after one warm run each: {name: [median
+    event ms, median wall ms]}."""
+    for fn in fns.values():
+        fn()
+    got = {k: [] for k in fns}
+    for i in range(reps):
+        for k in (list(fns) if i % 2 == 0 else list(fns)[::-1]):
+            got[k].append(_timed(fns[k], dev, mesh))
+    return {k: [round(statistics.median(t[0] for t in v), 4),
+                round(statistics.median(t[1] for t in v), 4)]
+            for k, v in got.items()}
+
+
+def allpairs_sets(feats, rows: int = AP_ROWS) -> tuple:
+    """Each frame's first ``rows`` valid descriptor rows, padded with
+    invalid zero rows: (desc f32[F, rows, 128], valid bool[F, rows])."""
+    F = feats.desc.shape[0]
+    desc = feats.desc.new_zeros((F, rows, 128))
+    valid = torch.zeros((F, rows), dtype=torch.bool, device=desc.device)
+    for f in range(F):
+        idx = torch.nonzero(feats.desc_valid[f])[:rows, 0]
+        desc[f, :len(idx)] = feats.desc[f, idx]
+        valid[f, :len(idx)] = True
+    return desc, valid
+
+
+def _ba_runs(mesh, fields: dict, step_fields: dict, dev, reps: int) -> dict:
+    """Distributed bundle adjustment of ``fields`` (dense and CG, 10
+    iterations) on this rank's shard: final cost, and with ``reps`` its
+    times (ranks together); the first GN step of each kind of
+    ``step_fields`` in f64, gathered in the original point order; the
+    distributed runs themselves (``fn``)."""
+    from popsift_tpu_torch.parallel.mesh import axis_size, psum
+    from popsift_tpu_torch.sfm import ba as B
+    from popsift_tpu_torch.sfm import distributed as D
+    n = axis_size(mesh)
+    shard = D.shard_of(D.partition_by_point(
+        B.problem_from_numpy(fields, dev), n)[0], mesh)
+    out = {}
+    for kind, kw in (("dense", dict(dense=True)), ("cg", dict(cg_iters=25))):
+        fn = D.make_distributed_ba_fn(mesh, iters=10, **kw)
+        res, costs = fn(shard)
+        ms = (_turns({kind: lambda: fn(shard)}, dev, reps, mesh)[kind]
+              if reps else None)
+        out[kind] = dict(cost=float(costs[-1]), ms=ms,
+                         finite=bool(torch.isfinite(costs).all()),
+                         fn=lambda fn=fn: fn(shard))
+    part, idx = D.partition_by_point(B.problem_from_numpy(step_fields, dev), n)
+    s64 = as_f64(D.shard_of(part, mesh))
+    lam = s64.cams.new_full((), 1e-3)
+    reduce = lambda x: psum(x, mesh)
+    for kind, step in (("dense", lambda: B.schur_dense_step(
+            s64, lam, reduce=reduce)), ("cg", lambda: B.schur_cg_step(
+                s64, lam, cg_iters=25, reduce=reduce))):
+        dc, dp, _ = step()
+        out[f"step_{kind}"] = dict(
+            dc=dc.cpu().numpy(),
+            dp=D.gather_points(dp, mesh, idx).cpu().numpy())
+    return out
+
+
+def avg_solves(graph: tuple, dev, mesh=None) -> tuple:
+    """Rotation averaging of ``graph`` and translation averaging in f32
+    and f64, on one process or, with ``mesh``, with the edges sharded
+    over it (``reduce=psum``): numpy (R, C, C in f64)."""
+    from popsift_tpu_torch.parallel.mesh import psum
+    from popsift_tpu_torch.sfm import distributed as D
+    from popsift_tpu_torch.sfm import global_sfm as G
+    n, ei, ej, R_rel, d = graph[:5]
+    reduce = None if mesh is None else (lambda x: psum(x, mesh))
+    t = lambda a: torch.from_numpy(a).to(dev)
+
+    def edges(payload):
+        if mesh is None:
+            return t(ei), t(ej), t(payload), None
+        return D.shard_edges(t(ei), t(ej), t(payload), None, mesh)
+    ii, jj, R, v = edges(R_rel)
+    out = [G.rotation_averaging(n, ii, jj, R, valid=v, reduce=reduce)[0]]
+    for dd in (d, d.astype(np.float64)):
+        ii, jj, dd, v = edges(dd)
+        out.append(G.translation_averaging(n, ii, jj, dd, valid=v,
+                                           reduce=reduce)[0])
+    return tuple(x.cpu().numpy() for x in out)
+
+
+def _field_gap(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """(same shape and dtype, bit-equal, float, max |a - b|, max |b|)."""
+    ok = a.shape == b.shape and a.dtype == b.dtype
+    eq = ok and bool(torch.equal(a, b))
+    fl = a.is_floating_point()
+    diff = float((a.double() - b.double()).abs().max()) if ok and fl and \
+        a.numel() else 0.0
+    return ok, eq, fl, diff, float(b.abs().max()) if fl and b.numel() else 0.0
+
+
+def parallel_rank(device, frames: np.ndarray, capacity: int, ref_path: str,
+                  ap_desc: np.ndarray, ap_valid: np.ndarray, fields: dict,
+                  step_fields: dict, graph: tuple, reps: int) -> dict:
+    """Phase 12 on one rank of a job (``parallel/launch.py::spawn``):
+    this rank's frames extracted and gathered, the ring and all-pairs
+    matches, distributed BA and the edge-sharded averaging; the gathered
+    features and ring matches compared here with the world-size-1 run
+    saved at ``ref_path``. Returns comparisons, launches and times."""
+    from popsift_tpu_torch.config import SiftConfig
+    from popsift_tpu_torch.ops import kernels
+    from popsift_tpu_torch.parallel import batch as PB
+    from popsift_tpu_torch.parallel import mesh as M
+    mesh = M.make_mesh(device=device)
+    me, n = M.axis_index(mesh), M.axis_size(mesh)
+    b = frames.shape[0] // n
+    local = torch.from_numpy(frames[me * b:(me + 1) * b]).to(device)
+    cfg = SiftConfig(extrema_capacity=capacity)
+    ext = PB.make_batched_extract_fn(cfg, *frames.shape[1:], mesh)
+    ext(local)
+    sync(device)
+    kernels.reset_launch_counts()
+    feats, _ = ext(local)
+    sync(device)
+    launches = kernels.launch_counts()
+    whole = PB.gather_features(feats, mesh)
+    ring = PB.gather_features(PB.ring_matches(feats, mesh), mesh)
+    ref = torch.load(ref_path)
+    gaps = {f"feats.{k}": _field_gap(v.cpu(), ref["feats"][k])
+            for k, v in whole._asdict().items()}
+    gaps.update({f"ring.{k}": _field_gap(v.cpu(), ref["ring"][k])
+                 for k, v in ring._asdict().items()})
+    del ref
+    first = feats.desc[:1]
+    times = _turns({
+        "extract": lambda: ext(local),
+        "gather_features": lambda: PB.gather_features(feats, mesh),
+        "ring_matches": lambda: PB.ring_matches(feats, mesh),
+        "ppermute_desc": lambda: M.ppermute(
+            first, mesh, [(i, (i - 1) % n) for i in range(n)])}, device,
+        reps, mesh)
+    ap_fn = PB.make_allpairs_match_fn(mesh)
+    blk = lambda a: torch.from_numpy(a[me * b:(me + 1) * b]).to(device)
+    ap = PB.gather_features(ap_fn(blk(ap_desc), blk(ap_valid)), mesh)
+    times.update(_turns({"allpairs": lambda: ap_fn(blk(ap_desc),
+                                                    blk(ap_valid))},
+                        device, reps, mesh))
+    ba = _ba_runs(mesh, fields, step_fields, device, reps)
+    for kind in ("dense", "cg"):
+        ba[kind].pop("fn")
+    return dict(rank=me, launches=launches, gaps=gaps, times=times,
+                allpairs={k: v.cpu().numpy() for k, v in ap._asdict().items()},
+                ba=ba, avg=avg_solves(graph, device, mesh))
+
+
+def _check_gaps(tag: str, gaps: dict) -> dict:
+    """Phase 5's rule on the gathered batch against the world-size-1 run:
+    integer and bool fields exact, float fields bit-equal or within 1e-6
+    x the field's magnitude. Returns {field: "equal" or the difference}."""
+    out = {}
+    for name, (ok, eq, fl, diff, mag) in gaps.items():
+        check(ok, f"{tag} {name}: shape or dtype differs")
+        check(eq or (fl and diff <= 1e-6 * mag),
+              f"{tag} {name} differs by {diff} (magnitude {mag})")
+        out[name] = "equal" if eq else f"{diff:.3g}"
+    return out
+
+
+def _allpairs_equal(tag: str, ap, desc, valid) -> None:
+    """Every (i, j) pair of an all-pairs result equals
+    ``match_descriptors`` of that pair run alone, bit for bit."""
+    from popsift_tpu_torch.ops.matching import match_descriptors
+    F = desc.shape[0]
+    for i in range(F):
+        for j in range(F):
+            want = match_descriptors(desc[i], valid[i], desc[j], valid[j],
+                                     tile=2048)
+            for k, w in want._asdict().items():
+                got = torch.as_tensor(ap[k][i, j]).to(w.device)
+                check(bool(torch.equal(got, w)),
+                      f"{tag}: pair ({i}, {j}) {k} differs from "
+                      f"match_descriptors alone")
+
+
+def parallel_phase(frames: list, dev, card: str = "", reps: int = 5,
+                   expect: tuple | None = (BENCH_KEYPOINTS,
+                                           BENCH_DESCRIPTORS),
+                   ba_size: dict | None = None,
+                   n_avg: int = AVG_NODES, ap_rows: int = AP_ROWS,
+                   capacity: int = 8192) -> dict:
+    """The multi-device layer on the card: (a) world size 1 on NCCL
+    (``cuda:0``): ``make_batched_extract_fn(match_pairs=True)`` of the
+    frames bit-equal to ``extract_batch``, the ring pairs to
+    ``match_descriptors``, 0 stream syncs, the main path's launches once
+    a batch; (c) all-pairs; (d) distributed BA; (e) edge-sharded
+    averaging, each against its single-process run; then (b)-(e) again on
+    two processes sharing the card on gloo, and (f) the dryrun at world
+    size 2. Returns the times."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from popsift_tpu_torch.config import SiftConfig
+    from popsift_tpu_torch.ops import kernels
+    from popsift_tpu_torch.ops.matching import match_descriptors
+    from popsift_tpu_torch.parallel import batch as PB
+    from popsift_tpu_torch.parallel import mesh as M
+    from popsift_tpu_torch.parallel.launch import spawn
+    from popsift_tpu_torch.pipeline import build_extract_plan, extract_batch
+    from popsift_tpu_torch.sfm import ba as B
+    from popsift_tpu_torch.sfm import global_sfm as G
+    from popsift_tpu_torch.utils.device import init_distributed
+
+    t_phase = time.perf_counter()
+    say(f"phase 12 on {card}")
+    on_card = dev.type == "cuda"
+    ba_size = ba_size or dict(n_cams=BA_CAMS, n_points=BA_POINTS)
+    cfg = SiftConfig(extrema_capacity=capacity)
+    F, (H, W) = len(frames), frames[0].shape
+    imgs = torch.from_numpy(np.stack(frames)).to(dev)
+    fields, _ = ba_scene(2, noise_px=0.5, **ba_size)
+    step_fields = step_scene(**ba_size)
+    graph = averaging_graph(n_avg)
+    times = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p12_")
+    init_distributed(num_processes=1, process_id=0,
+                     backend="nccl" if dev.type == "cuda" else "gloo",
+                     init_method=f"file://{tmp}/store")
+    try:
+        mesh = M.make_mesh(device=dev)
+        say(f"(a) world size 1: backend {mesh.backend}, device "
+            f"{mesh.device}")
+        # (a) data-parallel extraction with the ring matches
+        plan = build_extract_plan(cfg, H, W)
+        dp_fn = PB.make_batched_extract_fn(cfg, H, W, mesh, match_pairs=True)
+        ext_fn = PB.make_batched_extract_fn(cfg, H, W, mesh)
+        extract_batch(imgs, plan, dev)
+        sync(dev)
+        kernels.reset_launch_counts()
+        ref = extract_batch(imgs, plan, dev)
+        sync(dev)
+        want = kernels.launch_counts()
+        dp_fn(imgs)
+        sync(dev)
+        kernels.reset_launch_counts()
+        feats, ring = dp_fn(imgs)
+        sync(dev)
+        launches = kernels.launch_counts()
+        check(launches == want, f"(a) launches {launches} against "
+              f"extract_batch's {want}")
+        for name in MAIN_PATH:
+            check(launches[name] > 0, f"(a): {name} not launched")
+        for name in FUSED_ONCE:
+            check(launches[name] == 1, f"(a): {name} launched "
+                  f"{launches[name]} times for the batch")
+        for name, a, b in zip(feats._fields, feats, ref):
+            check(bool(torch.equal(a, b)), f"(a) {name} differs from "
+                  f"extract_batch")
+        counts = (int(feats.n_keypoints[0]), int(feats.n_descriptors[0]))
+        if expect is not None:
+            check(counts == expect and not feats.octave_dropped[0].any(),
+                  f"(a) frame 0 gave {counts}, expected {expect}")
+        pairs = [match_descriptors(ref.desc[i], ref.desc_valid[i],
+                                   ref.desc[(i + 1) % F],
+                                   ref.desc_valid[(i + 1) % F], tile=2048)
+                 for i in range(F)]
+        for i, m in enumerate(pairs):
+            for k, a, b in zip(m._fields, ring, m):
+                check(bool(torch.equal(a[i], b)), f"(a) ring pair {i}: {k} "
+                      f"differs from match_descriptors")
+        if on_card:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            again = dp_fn(imgs)
+        finally:
+            if on_card:
+                torch.cuda.set_sync_debug_mode("default")
+        check(all(torch.equal(a, b) for a, b in zip(again[0], feats))
+              and all(torch.equal(a, b) for a, b in zip(again[1], ring)),
+              "(a) a second run differs")
+        say(f"(a) {F} frames: features bit-equal to extract_batch, frame 0 "
+            f"{counts[0]} / {counts[1]}, the {F} ring pairs bit-equal to "
+            f"match_descriptors (accepted {ring.accept.sum(1).tolist()}), "
+            f"0 stream syncs (sync debug mode \"error\"), launches "
+            f"{launches}")
+        t = _turns({"make_batched_extract_fn": lambda: ext_fn(imgs),
+                    "extract_batch": lambda: extract_batch(imgs, plan, dev)},
+                   dev, reps)
+        times["ws1_ms_per_frame"] = {k: [round(x / F, 4) for x in v]
+                                     for k, v in t.items()}
+        times["ws1_ring_matches"] = _turns(
+            {"ring": lambda: PB.ring_matches(feats, mesh)}, dev, reps)["ring"]
+        say(f"(a) ms/frame [CUDA events, host wall], median of {reps} in "
+            f"turns: {times['ws1_ms_per_frame']}; ring step ({F} pairs) "
+            f"{times['ws1_ring_matches']} ms")
+
+        # (c) all-pairs over the frames' first AP_ROWS valid descriptors
+        ap_desc, ap_valid = allpairs_sets(ref, ap_rows)
+        ap_fn = PB.make_allpairs_match_fn(mesh)
+        ap1 = ap_fn(ap_desc, ap_valid)
+        _allpairs_equal("(c) world size 1", ap1._asdict(), ap_desc, ap_valid)
+        times["ws1_allpairs"] = _turns(
+            {"ap": lambda: ap_fn(ap_desc, ap_valid)}, dev, reps)["ap"]
+        say(f"(c) world size 1: all {F * F} pairs of {ap_rows} rows "
+            f"bit-equal to match_descriptors alone; "
+            f"{times['ws1_allpairs']} ms")
+
+        # (d) distributed BA against bundle_adjust
+        pd = B.problem_from_numpy(fields, dev)
+        single = {"dense": lambda: B.bundle_adjust(pd, iters=10, dense=True),
+                  "cg": lambda: B.bundle_adjust(pd, iters=10, dense=False,
+                                                cg_iters=25)}
+        ba1 = _ba_runs(mesh, fields, step_fields, dev, 0)
+        ref_cost = {k: float(fn()[1][-1]) for k, fn in single.items()}
+        p64 = as_f64(B.problem_from_numpy(step_fields, dev))
+        lam = p64.cams.new_full((), 1e-3)
+        steps = {"dense": B.schur_dense_step(p64, lam)[:2],
+                 "cg": B.schur_cg_step(p64, lam, cg_iters=25)[:2]}
+        for kind in ("dense", "cg"):
+            _check_ba(f"(d) world size 1 {kind}", ba1[kind], ba1[f"step_{kind}"],
+                      ref_cost[kind], steps[kind])
+            if on_card:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                ba1[kind]["fn"]()
+            finally:
+                if on_card:
+                    torch.cuda.set_sync_debug_mode("default")
+            t = _turns({"distributed": ba1[kind]["fn"],
+                        "bundle_adjust": single[kind]}, dev, reps)
+            times[f"ws1_ba_{kind}"] = t
+            say(f"(d) world size 1 {kind}: the LM loop ran under sync debug "
+                f"mode \"error\" (0 host syncs); ms [CUDA events, host "
+                f"wall], median of {reps} in turns: {t}")
+
+        # (e) edge-sharded averaging against the single-process solve
+        avg_ref = avg_solves(graph, dev)
+        _check_avg("(e) world size 1", avg_solves(graph, dev, mesh),
+                   avg_ref, graph)
+        saved = os.path.join(tmp, "ref.pt")
+        torch.save({"feats": {k: v.cpu() for k, v in feats._asdict().items()},
+                    "ring": {k: v.cpu() for k, v in ring._asdict().items()}},
+                   saved)
+        ap_np = (ap_desc.cpu().numpy(), ap_valid.cpu().numpy())
+        ap_ref = {k: v.cpu() for k, v in ap1._asdict().items()}
+        del feats, ring, again, ref, ap1, pd, p64
+    finally:
+        dist.destroy_process_group()
+
+    # (b)-(e) on two processes sharing the card, gloo through the host
+    if on_card:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(parallel_rank, 2, "gloo",
+                  f"cuda:{dev.index or 0}" if on_card else "cpu",
+                  args=(np.stack(frames), capacity, saved, *ap_np, fields,
+                        step_fields, graph, reps), timeout=900)
+    walls = {"ws2_job_s": round(time.perf_counter() - t0, 3)}
+    for r in ranks:
+        tag = f"(b) rank {r['rank']}"
+        for name in FUSED_ONCE:
+            check(r["launches"][name] == 1, f"{tag}: {name} launched "
+                  f"{r['launches'][name]} times for its frames")
+        res = _check_gaps(tag, r["gaps"])
+        unequal = {k: v for k, v in res.items() if v != "equal"}
+        say(f"{tag}: launches {r['launches']}; the gathered {F} frames and "
+            f"ring pairs (1->2, 3->0 across the ranks) against world size 1: "
+            f"{'bit-equal' if not unequal else unequal}")
+        for k, v in r["allpairs"].items():
+            check(np.array_equal(v, ap_ref[k].numpy()),
+                  f"(c) world size 2: {k} differs from world size 1")
+        for kind in ("dense", "cg"):
+            _check_ba(f"(d) world size 2 rank {r['rank']} {kind}",
+                      r["ba"][kind], r["ba"][f"step_{kind}"], ref_cost[kind],
+                      steps[kind])
+        _check_avg(f"(e) world size 2 rank {r['rank']}", r["avg"], avg_ref,
+                   graph)
+        times[f"ws2_rank{r['rank']}"] = dict(
+            r["times"], ba_dense=r["ba"]["dense"]["ms"],
+            ba_cg=r["ba"]["cg"]["ms"])
+    say(f"(c) world size 2: all pairs equal to world size 1; (d), (e) as "
+        f"above")
+    say(f"(b)-(e) world size 2 ms [CUDA events, host wall], median of {reps}"
+        f", both ranks together: {json.dumps({k: v for k, v in times.items() if k.startswith('ws2')})}")
+
+    # (f) the dryrun on two ranks sharing the card
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "popsift_tpu_torch.tools.dryrun_multichip",
+         "--world-size", "2", "--device",
+         f"cuda:{dev.index or 0}" if on_card else "cpu", "--backend", "gloo"],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+        text=True, timeout=600)
+    walls["dryrun_s"] = round(time.perf_counter() - t0, 3)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("dryrun_multichip:")]
+    check(proc.returncode == 0 and lines, f"(f) dryrun failed "
+          f"({proc.returncode}):\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    say(f"(f) {lines[-1]}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    walls["phase_s"] = round(time.perf_counter() - t_phase, 3)
+    times["walls_s"] = walls
+    say("phase 12 times: " + json.dumps(times))
+    return times
+
+
+def _check_ba(tag: str, got: dict, step: dict, ref_cost: float,
+              ref_step: tuple) -> None:
+    """A distributed BA run's final cost within BA_COST_TOL of
+    ``bundle_adjust``'s and its first f64 GN step within 1e-9 x the
+    step's max of the single-process f64 step."""
+    gap = abs(got["cost"] - ref_cost) / ref_cost
+    f64 = {k: _gap(torch.from_numpy(step[k]), r)
+           for k, r in zip(("dc", "dp"), ref_step)}
+    say(f"{tag}: final cost {got['cost']:.8g} against bundle_adjust's "
+        f"{ref_cost:.8g} ({gap:.3g} relative); first f64 step dc "
+        f"{f64['dc']:.3g}, dp {f64['dp']:.3g} x its max off the "
+        f"single-process step")
+    check(got["finite"] and gap <= BA_COST_TOL,
+          f"{tag}: final cost {gap} off bundle_adjust's")
+    check(all(v <= 1e-9 for v in f64.values()), f"{tag}: f64 step {f64}")
+
+
+def _check_avg(tag: str, got: tuple, ref: tuple, graph: tuple) -> None:
+    """The edge-sharded solves ``got`` (R, C, C in f64) against the
+    single-process ``ref``: rotations within ROTATION_TOL, the f64
+    translations within phase 10's TRANSLATION_F32_TOL x the scale. The
+    f32 translations are read, not held: at this size the dense f32
+    solve (its gauge pinned by a 1e6 diagonal) moves with the last bits
+    of its system, and its annealed IRLS carries that anywhere (ROADMAP
+    C); their gaps and ATEs are printed."""
+    from popsift_tpu_torch.sfm.evaluate import umeyama
+    C_gt = graph[5].astype(np.float64)
+
+    def ate(C):
+        s, R, t = umeyama(C.astype(np.float64), C_gt)
+        return float(np.linalg.norm(C @ (s * R).T + t - C_gt, axis=1).max())
+
+    scale = float(np.linalg.norm(ref[2] - ref[2].mean(0), axis=1).mean())
+    gap = lambda a, b: float(np.linalg.norm(a - b, axis=1).max()) / scale
+    r_gap = float(np.abs(got[0] - ref[0]).max())
+    t64, t32 = gap(got[2], ref[2]), gap(got[1], ref[1])
+    say(f"{tag}: averaging of {graph[0]} nodes / {len(graph[1])} edges: "
+        f"rotations {r_gap:.3g} off the single-process solve; translations "
+        f"in f64 {t64:.3g} x the scale off it; in f32 {t32:.3g} (the "
+        f"single-process f32 solve {gap(ref[1], ref[2]):.3g} off the f64 "
+        f"one; largest error after a similarity: f32 {ate(got[1]):.3g}, "
+        f"single-process f32 {ate(ref[1]):.3g}, f64 {ate(got[2]):.3g})")
+    check(r_gap <= ROTATION_TOL, f"{tag}: rotations {r_gap} off")
+    check(t64 <= TRANSLATION_F32_TOL, f"{tag}: f64 translations {t64} x "
+          f"the scale off")
+
+
 def profile_phase(frame: np.ndarray, dev, out_dir: str) -> None:
     """A torch.profiler table of one run of the main path, of the window
     route and of the chain front, written to DIR/profile*.txt."""
@@ -3535,7 +4067,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     say("phase 1: card")
-    card_phase(dev)
+    card = card_phase(dev)
     say("phase 2: build")
     build_phase()
     say("phase 3: kernels against their plain versions at 1080p shapes")
@@ -3560,6 +4092,8 @@ def main(argv=None) -> int:
     drivers_phase(dev)
     say("phase 11: popsift-sfm, images to model")
     sfm_cli_phase(dev)
+    say("phase 12: multi-device layer (world sizes 1 and 2)")
+    parallel_phase(frames, dev, card["nvidia_smi"])
     for r in rows:
         r["launches"] = runs[LAUNCHES_FROM[r["name"]]][r["name"]]
         check(r["launches"] > 0, f"{r['name']} was launched no time in the "

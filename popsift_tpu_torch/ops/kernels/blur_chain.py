@@ -124,15 +124,14 @@ def blur_chain(src: torch.Tensor, kernels, group: int | None = None,
         sp = np.asarray(spans[g0:g1], dtype=np.int32)
         b, d = blurs[:, g0:g1], dogs[:, g0:g1]
         pk = pick if pick is not None and g0 <= pick_level < g1 else None
-        rc = lib.ps_blur_chain(
+        build.launch(
+            NAME, src, lib.ps_blur_chain,
             prev.data_ptr(), prev.stride(0), b.data_ptr(), b.stride(0),
             b.stride(1), d.data_ptr(), d.stride(0), d.stride(1),
             None if pk is None else pk.data_ptr(),
             0 if pk is None else pk.stride(0), oh, ow, pick_level - g0,
             N, H, W, taps.ctypes.data_as(ctypes.c_void_p),
-            sp.ctypes.data_as(ctypes.c_void_p), g1 - g0, T,
-            build.stream_of(src))
-        build.check(rc, NAME)
+            sp.ctypes.data_as(ctypes.c_void_p), g1 - g0, T)
         launches += 1
         prev = blurs[:, g1 - 1]
     return blurs, dogs

@@ -149,13 +149,13 @@ def blur_dog(src: torch.Tensor, kernel: np.ndarray, out=None, pick=None):
                              f"device (got {pick.device})")
     taps = np.ascontiguousarray(kernel[S:], dtype=np.float32)
     lib = build.load_library()
-    rc = lib.ps_blur_dog(
+    build.launch(
+        NAME, src, lib.ps_blur_dog,
         src.data_ptr(), src.stride(0), blur.data_ptr(), blur.stride(0),
         dog.data_ptr(), dog.stride(0),
         None if pick is None else pick.data_ptr(),
         0 if pick is None else pick.stride(0), oh, ow, N, H, W,
-        taps.ctypes.data_as(ctypes.c_void_p), S, build.stream_of(src))
-    build.check(rc, NAME)
+        taps.ctypes.data_as(ctypes.c_void_p), S)
     launches += 1
     return blur, dog
 
@@ -216,9 +216,9 @@ def blur_dog_thin(blurs, dogs, kernels, pick_level: int) -> None:
     for row, k, S in zip(taps, kernels, spans):
         row[:S + 1] = k[S:]
     lib = build.load_library()
-    rc = lib.ps_blur_dog_thin(
+    build.launch(
+        NAME_THIN, blurs[0], lib.ps_blur_dog_thin,
         table.ctypes.data_as(ctypes.c_void_p), len(blurs), N, L, pick_level,
         taps.ctypes.data_as(ctypes.c_void_p),
-        spans.ctypes.data_as(ctypes.c_void_p), build.stream_of(blurs[0]))
-    build.check(rc, NAME_THIN)
+        spans.ctypes.data_as(ctypes.c_void_p))
     launches_thin += 1

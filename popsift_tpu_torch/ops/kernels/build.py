@@ -15,7 +15,8 @@ JAX package's f32 algebra and the plain PyTorch versions do. No
 ``--use_fast_math``: divisions and square roots stay IEEE.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
-:func:`check` raises when it is not 0.
+:func:`launch` calls one under its tensors' device guard and raises when
+that is not 0.
 """
 
 from __future__ import annotations
@@ -184,6 +185,19 @@ def stream_of(t) -> int:
     """Handle of PyTorch's current stream on ``t``'s device."""
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(name: str, t, fn, *args) -> None:
+    """Call the C entry ``fn(*args, stream)`` under ``t``'s device guard,
+    with PyTorch's current stream on that device as the stream, and raise
+    when it reports a CUDA error. The C entries launch on the calling
+    thread's current device, so without the guard a kernel given tensors
+    on ``cuda:1`` while ``cuda:0`` is current would run on the wrong card
+    with foreign pointers."""
+    import torch
+    with torch.cuda.device(t.device):
+        rc = fn(*args, stream_of(t))
+    check(rc, name)
 
 
 def require_cuda(name: str, *tensors) -> None:

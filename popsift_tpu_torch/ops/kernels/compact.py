@@ -214,10 +214,10 @@ def compact_octaves(masks, caps, pinned: int = 0, F: int = 1):
     n_found, n_dropped = torch.empty((2, F, len(masks)), dtype=torch.int64,
                                      device=dev)
     lib = build.load_library()
-    rc = lib.ps_compact_octaves(
+    build.launch(
+        NAME, masks[0], lib.ps_compact_octaves,
         table.ctypes.data_as(ctypes.c_void_p), len(masks), F, rows,
         scratch.data_ptr(), x0.data_ptr(), y0.data_ptr(), z0.data_ptr(),
-        n_found.data_ptr(), n_dropped.data_ptr(), build.stream_of(masks[0]))
-    build.check(rc, NAME)
+        n_found.data_ptr(), n_dropped.data_ptr())
     launches += 1
     return x0, y0, z0, n_found, n_dropped

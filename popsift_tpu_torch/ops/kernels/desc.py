@@ -237,11 +237,11 @@ def descriptor_loop_octaves(blurs, row_ends, x, y, sigma, level, ang, valid,
     table = np.asarray([[b.data_ptr(), *b.shape, end]
                         for b, end in zip(blurs, row_ends)], np.int64)
     lib = build.load_library()
-    rc = lib.ps_descriptor_loop_octaves(
+    build.launch(
+        NAME_OCTAVES, x, lib.ps_descriptor_loop_octaves,
         table.ctypes.data_as(ctypes.c_void_p), len(blurs), x.data_ptr(),
         y.data_ptr(), sigma.data_ptr(), level.data_ptr(), ang.data_ptr(),
-        valid.data_ptr(), radius, out.data_ptr(), build.stream_of(x))
-    build.check(rc, NAME_OCTAVES)
+        valid.data_ptr(), radius, out.data_ptr())
     launches_octaves += 1
     return out
 
@@ -270,11 +270,11 @@ def descriptor_loop(blur, x, y, sigma, level, ang, valid, n: int,
     if n == 0:
         return out
     lib = build.load_library()
-    rc = lib.ps_descriptor_loop(
+    build.launch(
+        NAME, blur, lib.ps_descriptor_loop,
         blur.data_ptr(), L, H, W, x.data_ptr(), y.data_ptr(),
         sigma.data_ptr(), level.data_ptr(), ang.data_ptr(),
-        valid.data_ptr(), n, radius, out.data_ptr(), build.stream_of(blur))
-    build.check(rc, NAME)
+        valid.data_ptr(), n, radius, out.data_ptr())
     launches += 1
     return out
 
@@ -330,11 +330,11 @@ def descriptor_loop_patches(patches, y0, x0, x, y, sigma, ang, valid,
     if F == 0:
         return out
     lib = build.load_library()
-    rc = lib.ps_descriptor_loop_patches(
+    build.launch(
+        NAME_PATCHES, patches, lib.ps_descriptor_loop_patches,
         patches.data_ptr(), P, PL, H, W, y0.data_ptr(), x0.data_ptr(),
         x.data_ptr(), y.data_ptr(), sigma.data_ptr(), ang.data_ptr(),
-        valid.data_ptr(), F, out.data_ptr(), build.stream_of(patches))
-    build.check(rc, NAME_PATCHES)
+        valid.data_ptr(), F, out.data_ptr())
     launches_patches += 1
     return out
 

@@ -84,10 +84,9 @@ def _launch(name: str, dogs, F: int, thr1: float) -> list:
                          d.shape[1], d.shape[2]]
                         for d, o in zip(dogs, outs)], np.int64)
     lib = build.load_library()
-    rc = lib.ps_extrema_mask_octaves(
-        table.ctypes.data_as(ctypes.c_void_p), len(dogs), F, float(thr1),
-        build.stream_of(dogs[0]))
-    build.check(rc, name)
+    build.launch(
+        name, dogs[0], lib.ps_extrema_mask_octaves,
+        table.ctypes.data_as(ctypes.c_void_p), len(dogs), F, float(thr1))
     return outs
 
 

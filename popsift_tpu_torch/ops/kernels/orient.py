@@ -147,12 +147,11 @@ def _launch(name: str, blurs, row_ends, x, y, sigma, level, valid, F: int,
                          b.shape[2], end]
                         for b, end in zip(blurs, row_ends)], np.int64)
     lib = build.load_library()
-    rc = lib.ps_orientation_hist_octaves(
+    build.launch(
+        name, x, lib.ps_orientation_hist_octaves,
         table.ctypes.data_as(ctypes.c_void_p), len(blurs), n_rows,
         n_rows // F, x.data_ptr(), y.data_ptr(), sigma.data_ptr(),
-        level.data_ptr(), valid.data_ptr(), out.data_ptr(),
-        build.stream_of(x))
-    build.check(rc, name)
+        level.data_ptr(), valid.data_ptr(), out.data_ptr())
     return out
 
 

@@ -190,10 +190,11 @@ def refine_state(dog: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
     if n == 0:
         return out
     lib = build.load_library()
-    rc = lib.ps_refine(dog.data_ptr(), x0.data_ptr(), y0.data_ptr(),
+    build.launch(
+        NAME, dog, lib.ps_refine,
+        dog.data_ptr(), x0.data_ptr(), y0.data_ptr(),
                        z0.data_ptr(), n, D, H, W, maxlevel, int(vlfeat),
-                       out.data_ptr(), build.stream_of(dog))
-    build.check(rc, NAME)
+                       out.data_ptr())
     launches += 1
     return out
 
@@ -244,11 +245,11 @@ def refine_state_batched(dog: torch.Tensor, x0: torch.Tensor,
     if cap == 0:
         return out
     lib = build.load_library()
-    rc = lib.ps_refine_batched(
+    build.launch(
+        NAME_BATCHED, dog, lib.ps_refine_batched,
         dog.data_ptr(), x0.data_ptr(), y0.data_ptr(), z0.data_ptr(),
         n_found.data_ptr(), F, cap, FD // F, H, W, maxlevel, int(vlfeat),
-        out.data_ptr(), build.stream_of(dog))
-    build.check(rc, NAME_BATCHED)
+        out.data_ptr())
     launches_batched += 1
     return out
 
@@ -313,10 +314,10 @@ def refine_state_octaves(dogs, x0: torch.Tensor, y0: torch.Tensor,
                          d.shape[2], e] for d, e in zip(dogs, ends)],
                        np.int64)
     lib = build.load_library()
-    rc = lib.ps_refine_octaves(
+    build.launch(
+        NAME_OCTAVES, x0, lib.ps_refine_octaves,
         table.ctypes.data_as(ctypes.c_void_p), len(dogs), F, x0.data_ptr(),
         y0.data_ptr(), z0.data_ptr(), n_found.data_ptr(), maxlevel,
-        int(vlfeat), out.data_ptr(), build.stream_of(x0))
-    build.check(rc, NAME_OCTAVES)
+        int(vlfeat), out.data_ptr())
     launches_octaves += 1
     return out

@@ -89,14 +89,13 @@ def _launch(entry: str, vol, cy, cx, n_found, F: int, radius: int, rows: int,
     if K == 0:
         return out
     lib = build.load_library()
-    tail = (FD // F, H, W, radius, rows, cols, out.data_ptr(),
-            build.stream_of(vol))
+    tail = (FD // F, H, W, radius, rows, cols, out.data_ptr())
     ptrs = (vol.data_ptr(), cy.data_ptr(), cx.data_ptr(), n_found.data_ptr())
     if entry == NAME:
-        rc = lib.ps_extract_windows(*ptrs, K, *tail)
+        build.launch(entry, vol, lib.ps_extract_windows, *ptrs, K, *tail)
     else:
-        rc = lib.ps_extract_windows_batched(*ptrs, F, K // F, *tail)
-    build.check(rc, entry)
+        build.launch(entry, vol, lib.ps_extract_windows_batched, *ptrs, F,
+                     K // F, *tail)
     return out
 
 

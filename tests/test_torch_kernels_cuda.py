@@ -586,3 +586,28 @@ def test_extract_does_not_synchronize(dev):
         assert torch.equal(a, b)
     for a, b in zip(two, batch):
         assert torch.equal(a, b)
+
+
+def test_kernels_launch_on_their_tensors_device():
+    """Every wrapper launches under its tensors' device guard: the main
+    path on the last card, while ``cuda:0`` is the current device, equals
+    the same run on ``cuda:0`` and leaves the current device alone.
+    Without the guard the C entries would launch on ``cuda:0`` with the
+    other card's pointers."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: a launch on a device other "
+                    "than the current one")
+    from popsift_tpu_torch.pipeline import build_extract_plan, extract_batch
+    d0 = torch.device("cuda", 0)
+    d1 = torch.device("cuda", torch.cuda.device_count() - 1)
+    rng = np.random.default_rng(5)
+    frames = (rng.random((2, 96, 128)) * 255).astype(np.uint8)
+    plan = build_extract_plan(SiftConfig(octaves=3), 96, 128)
+    torch.cuda.set_device(d0)
+    want = extract_batch(frames, plan, d0)
+    got = extract_batch(frames, plan, d1)
+    torch.cuda.synchronize(d1)
+    assert torch.cuda.current_device() == 0
+    for a, b in zip(got, want):
+        assert a.device == d1
+        assert torch.equal(a.cpu(), b.cpu())
