@@ -220,20 +220,44 @@ any failed phase raises and the script exits non-zero:
    across the ranks) against (a) by phase 5's rule, all-pairs equal to
    (a), BA and averaging as above, and the times of the host-staged
    collectives; (f) ``tools/dryrun_multichip.py`` at world size 2 on the
-   card.
+   card;
+13. the spatially sharded extraction (``parallel/spatial.py``; no kernel
+   of its own: each rank runs the main path's kernels on its band, K2,
+   K3 and K4 through their entries with row bounds): (a) world size 1
+   on NCCL, ``make_sharded_extract_fn`` of frames 0 and 1 with
+   ``SiftConfig(extrema_capacity=8192)``, every launch counter reset
+   just before it, equal in every field to ``extract`` at the effective
+   capacities, 2110 / 2505 on frame 0 with no octave saturated or
+   dropping, K5, its thin entry, K1, the compaction and the bounded K2,
+   K3 and K4 launched (K1, the compaction and the bounded entries once,
+   the unbounded K2-K4 not at all), 0 stream syncs under
+   ``set_sync_debug_mode("error")``, peak memory and ms/frame in turns
+   with ``extract``; the 4K frame ``bench.make_frame(2160, 3840)`` at
+   ``CAPACITY_4K`` the same way; (b) world size 2 on gloo, both ranks on
+   the card: frames 0-1 against (a) by phase 5's rule, each rank's
+   sharded octaves, band candidates and drops, launches, collectives and
+   their bytes, peak memory and ms/frame in turns with ``extract``; (d)
+   the 4K frame the same way; (e) on the last rank the bounded launches
+   of its band again against their plain versions (K2 bit-equal, K3 and
+   K4 within 1e-5 x the row's max), with whole-stack bounds bit-equal to
+   the unbounded launch, timed beside their bounds; (c) DP x SP, a (2, 2)
+   mesh of four ranks on the card, frames 0-1 against (b); (f) phase
+   12's run of ``tools/dryrun_multichip.py`` at world size 2 on the
+   card, its spatial items (2, 2b) equal to ``extract``.
 
 TF32 is switched off for matmuls and cuDNN (the plain versions must run
 in full f32). The second line before the last is a JSON object with one
 entry per kernel entry (``launches`` from the run of its path: phase 4
 for the entries of the single-frame path, phase 6 for the window copy,
-the chain front and the entries off every path); the last line is the
-device record. ``--profile DIR`` also writes a torch.profiler table of
+the chain front and the entries off every path, phase 13 (a) for the
+bounded entries); the last line is the device record. ``--profile DIR`` also writes a torch.profiler table of
 one run of the main path, of the window route and of the chain front to
 DIR/profile*.txt and prints each run's counts, and phase 9's tables of
 each timed SfM call. Phase 10 alone: ``drivers_phase(torch.device(
 "cuda"))``; phase 11: ``sfm_cli_phase`` after ``build_phase()``; phase
 12: ``parallel_phase(frames, dev, card)`` after ``build_phase()`` (run
-from a file: its ranks are spawned processes that import ``__main__``).
+from a file: its ranks are spawned processes that import ``__main__``);
+phase 13 the same way with ``spatial_phase(frames, dev, card)``.
 """
 
 from __future__ import annotations
@@ -297,7 +321,10 @@ LAUNCHES_FROM = {
     "extract_windows": "windows", "extract_windows_batched": "windows_batch",
     "blur_chain": "chain", "descriptor_loop_patches": "off_path",
     "orientation_hist_bucketed": "off_path",
-    "descriptor_loop_bucketed": "off_path"}
+    "descriptor_loop_bucketed": "off_path",
+    "refine_octaves_bounded": "sharded",
+    "orientation_hist_octaves_bounded": "sharded",
+    "descriptor_loop_octaves_bounded": "sharded"}
 # the main path's host work, checked on one profiler pass of extract
 MAX_LAUNCH_CALLS = 700
 # NVIDIA's data sheet for the H100 SXM: device memory rate and the f32
@@ -384,6 +411,35 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple:
     t_b = n_bytes / HBM_BYTES_PER_S * 1e3
     t_o = n_ops / F32_FLOP_PER_S * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def refine_bound(n_live: int, n_rows: int) -> tuple:
+    """K2's bound: a live candidate's coordinates and 27 neighbours read
+    at least once and its 16-float state written (every capacity row is
+    written); about 150 operations for one step, which every candidate
+    needs (how many of the five steps each took is not counted)."""
+    return bound_ms(n_live * (12 + 27 * 4) + n_rows * 64, n_live * 150)
+
+
+def ori_bound(sigma: torch.Tensor, n_rows: int) -> tuple:
+    """K3's bound for valid rows of scale ``sigma``: a row's window of
+    radius r = round(4.5 sigma) with its gradient margin read once, its 36
+    bins written (every row); about 40 operations a pixel (gradient,
+    sqrt, atan2, exp, bin)."""
+    rad = torch.round(sigma * 4.5)
+    return bound_ms(float(((2 * rad + 3) ** 2).sum()) * 4 + n_rows * 36 * 4,
+                    float(((2 * rad + 1) ** 2).sum()) * 40)
+
+
+def desc_bound(sigma: torch.Tensor, radius: int, n_rows: int) -> tuple:
+    """K4's bound for valid jobs of scale ``sigma``: a job's support of
+    half-side s = ceil(2.5 sqrt(2) 3 sigma) + 2 (at most the static
+    radius) with its gradient margin read once, its 128 bins written
+    (every row); about 90 operations a pixel (gradient, sqrt, atan2, exp
+    and the rotation 40, eight tile weights 24, eight bin updates 24)."""
+    sup = (torch.ceil(sigma * (3.0 * 2.5 * 2.0 ** 0.5)) + 2).clamp(max=radius)
+    return bound_ms(float(((2 * sup + 3) ** 2).sum()) * 4 + n_rows * 128 * 4,
+                    float(((2 * sup + 1) ** 2).sum()) * 90)
 
 
 def card_phase(dev) -> dict:
@@ -645,13 +701,7 @@ def kernels_phase(frames: list, dev, reps: int = 20) -> list:
         median_ms(lambda: extrema_mask.candidate_mask_octaves(dstk, thr1),
                   dev, reps), mask_plain_ms, mask_bound(1))
 
-    # K2 refine: a candidate's coordinates and 27 neighbours read at least
-    # once and its 16-float state written (every capacity row is written);
-    # about 150 operations for one step, which every candidate needs (how
-    # many of the five steps each took is not counted)
-    def refine_bound(n_live, n_rows):
-        return bound_ms(n_live * (12 + 27 * 4) + n_rows * 64, n_live * 150)
-
+    # K2 refine (bound: :func:`refine_bound`)
     cands = [E.collect_candidates(d, cfg, caps[o])
              for o, d in enumerate(dogs)]
     nf = [int(c.n_found) for c in cands]
@@ -791,19 +841,13 @@ def kernels_phase(frames: list, dev, reps: int = 20) -> list:
     hp = torch.cat([orient.orientation_hist_torch(*a) for a in oargs])
     rel = rel_row_err(hk, hp)
     check(rel <= 1e-5, f"K3 histograms differ by {rel} x row max")
-    # a valid row's window of radius r = round(4.5 sigma) with its
-    # gradient margin read once, its 36 bins written; about 40 operations a
-    # pixel (gradient, sqrt, atan2, exp, bin)
-    rad = torch.round(g.sigma[g.valid] * 4.5)
-    ori_bound = bound_ms(
-        float(((2 * rad + 3) ** 2).sum()) * 4 + sum(caps) * 36 * 4,
-        float(((2 * rad + 1) ** 2).sum()) * 40)
+    k3_bound = ori_bound(g.sigma[g.valid], sum(caps))
     ori_ms = median_ms(lambda: [orient.orientation_hist(*a) for a in oargs],
                        dev, reps)
     ori_plain_ms = median_ms(lambda: [orient.orientation_hist_torch(*a)
                                       for a in oargs], dev, reps)
     row(orient.NAME, float((hk - hp).abs().max()), ori_ms, ori_plain_ms,
-        ori_bound, what=f"per frame as {sum(n > 0 for n in nf)} single-octave "
+        k3_bound, what=f"per frame as {sum(n > 0 for n in nf)} single-octave "
                         f"launches")
     # one launch over the rows of all octaves, as the extraction path has it
     hargs_all = (list(blurs), [int(e) for e in offs[1:]], g.x, g.y, g.sigma,
@@ -820,7 +864,7 @@ def kernels_phase(frames: list, dev, reps: int = 20) -> list:
         f"to a second run")
     row(orient.NAME_OCTAVES, float((ho - hp).abs().max()),
         median_ms(lambda: orient.orientation_hist_octaves(*hargs_all), dev,
-                  reps), ori_plain_ms, ori_bound)
+                  reps), ori_plain_ms, k3_bound)
     del ho
 
     # bucketed launches of K3: the same rows through two launches an octave
@@ -840,7 +884,7 @@ def kernels_phase(frames: list, dev, reps: int = 20) -> list:
         median_ms(lambda: [orient.orientation_hist_bucketed(*a) for a in bo],
                   dev, reps),
         median_ms(lambda: [orient.orientation_hist_bucketed(*a, plain=True)
-                           for a in bo], dev, reps), ori_bound)
+                           for a in bo], dev, reps), k3_bound)
 
     # K4 descriptors
     oris = O.orientations_from_histograms(hk, g.valid)
@@ -874,25 +918,16 @@ def kernels_phase(frames: list, dev, reps: int = 20) -> list:
     say(f"K4 over all {nO} octaves in one launch: within {rel:.3g} x row "
         f"max of its plain version, bit-equal to the {nO} single-octave "
         f"launches and to a second run")
-    # a valid job's support of half-side s = ceil(2.5 sqrt(2) 3 sigma) + 2
-    # (at most the static radius) with its gradient margin read once, its
-    # 128 bins written; about 90 operations a pixel (gradient, sqrt, atan2,
-    # exp and the rotation 40, eight tile weights 24, eight bin updates 24)
-    sup = (torch.ceil(jobs.sigma[jobs.valid] * (3.0 * 2.5 * 2.0 ** 0.5)) + 2
-           ).clamp(max=radius)
     n_jobs_cap = int(joff[-1])
-    desc_ops = float(((2 * sup + 1) ** 2).sum()) * 90
-    desc_bound = bound_ms(
-        float(((2 * sup + 3) ** 2).sum()) * 4 + n_jobs_cap * 128 * 4,
-        desc_ops)
+    k4_bound = desc_bound(jobs.sigma[jobs.valid], radius, n_jobs_cap)
     plain_ms = median_ms(lambda: [desc.descriptor_loop_torch(*a)
                                   for a in dargs], dev, reps)
     row(desc.NAME_OCTAVES, float((dk - dp).abs().max()),
         median_ms(lambda: desc.descriptor_loop_octaves(*oargs_all), dev,
-                  reps), plain_ms, desc_bound)
+                  reps), plain_ms, k4_bound)
     row(desc.NAME, float((dk - dp).abs().max()),
         median_ms(lambda: [desc.descriptor_loop(*a) for a in dargs],
-                  dev, reps), plain_ms, desc_bound,
+                  dev, reps), plain_ms, k4_bound,
         what=f"per frame as {sum(c > 0 for c in counts)} single-octave "
              f"launches")
 
@@ -915,7 +950,7 @@ def kernels_phase(frames: list, dev, reps: int = 20) -> list:
         median_ms(lambda: [desc.descriptor_loop_bucketed(*a) for a in bd],
                   dev, reps),
         median_ms(lambda: [desc.descriptor_loop_bucketed(*a, plain=True)
-                           for a in bd], dev, reps), desc_bound)
+                           for a in bd], dev, reps), k4_bound)
 
     # the patch entry of K4 on the densest octave's real jobs: windows of
     # 104 x 128 cut around each job, as the JAX tests cut them
@@ -3963,24 +3998,32 @@ def parallel_phase(frames: list, dev, card: str = "", reps: int = 5,
         f", both ranks together: {json.dumps({k: v for k, v in times.items() if k.startswith('ws2')})}")
 
     # (f) the dryrun on two ranks sharing the card
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "popsift_tpu_torch.tools.dryrun_multichip",
-         "--world-size", "2", "--device",
-         f"cuda:{dev.index or 0}" if on_card else "cpu", "--backend", "gloo"],
-        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
-        text=True, timeout=600)
-    walls["dryrun_s"] = round(time.perf_counter() - t0, 3)
-    lines = [ln for ln in proc.stdout.splitlines()
-             if ln.startswith("dryrun_multichip:")]
-    check(proc.returncode == 0 and lines, f"(f) dryrun failed "
-          f"({proc.returncode}):\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
-    say(f"(f) {lines[-1]}")
+    times["dryrun"], walls["dryrun_s"] = dryrun_two_ranks(dev)
+    say(f"(f) {times['dryrun']}")
     shutil.rmtree(tmp, ignore_errors=True)
     walls["phase_s"] = round(time.perf_counter() - t_phase, 3)
     times["walls_s"] = walls
     say("phase 12 times: " + json.dumps(times))
     return times
+
+
+def dryrun_two_ranks(dev) -> tuple:
+    """``tools/dryrun_multichip.py`` at world size 2, both ranks on the
+    card (gloo): (its report line, seconds). Every item's check holds or
+    it fails."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "popsift_tpu_torch.tools.dryrun_multichip",
+         "--world-size", "2", "--device",
+         f"cuda:{dev.index or 0}" if dev.type == "cuda" else "cpu",
+         "--backend", "gloo"],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+        text=True, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("dryrun_multichip:")]
+    check(proc.returncode == 0 and lines, f"dryrun failed "
+          f"({proc.returncode}):\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    return lines[-1], round(time.perf_counter() - t0, 3)
 
 
 def _check_ba(tag: str, got: dict, step: dict, ref_cost: float,
@@ -4028,6 +4071,454 @@ def _check_avg(tag: str, got: tuple, ref: tuple, graph: tuple) -> None:
     check(r_gap <= ROTATION_TOL, f"{tag}: rotations {r_gap} off")
     check(t64 <= TRANSLATION_F32_TOL, f"{tag}: f64 translations {t64} x "
           f"the scale off")
+
+
+# phase 13: the spatially sharded extraction (parallel/spatial.py)
+BOUNDED = ("refine_octaves_bounded", "orientation_hist_octaves_bounded",
+           "descriptor_loop_octaves_bounded")
+SPATIAL_PATH = ("blur_dog", "blur_dog_thin", "extrema_mask_octaves",
+                "compact") + BOUNDED
+FRAME_4K = (2160, 3840)
+# per-octave capacity of the 4K runs: the densest 4K octave holds about
+# four times the 1080p frame's 2005 candidates, and a band takes half
+CAPACITY_4K = 32768
+
+
+def _spatial_fields(feats) -> dict:
+    return {k: v.cpu() for k, v in feats._asdict().items()}
+
+
+def canonical(f: dict) -> dict:
+    """One frame's features (CPU tensors) in an order that does not depend
+    on how the ranks laid their rows out: the valid keypoints sorted by
+    (octave, x, y, sigma) with their orientations, then the valid
+    descriptors in that keypoint order (a keypoint's in job order), and
+    the counts. A sharded octave's rows are its bands' rows, each band
+    front-packed, so two world sizes order them differently."""
+    rows = f["valid"].nonzero()[:, 0].numpy()
+    key = [f[k].numpy()[rows] for k in ("sigma", "y", "x", "octave")]
+    order = rows[np.lexsort(key)]
+    rank = np.full(f["valid"].shape[0], -1)
+    rank[order] = np.arange(order.size)
+    drows = f["desc_valid"].nonzero()[:, 0].numpy()
+    dorder = drows[np.lexsort((drows, rank[f["desc_kp"].numpy()[drows]]))]
+    out = {k: f[k][torch.from_numpy(order)] for k in
+           ("x", "y", "sigma", "octave", "num_ori", "ori", "ori_valid")}
+    out["desc"] = f["desc"][torch.from_numpy(dorder)]
+    for k in ("n_keypoints", "n_descriptors", "octave_candidates",
+              "octave_dropped"):
+        out[k] = f[k]
+    return out
+
+
+def _gaps(got, ref: dict, layout: bool = True) -> dict:
+    """Field gaps (:func:`_field_gap`) of features ``got`` to the CPU
+    fields ``ref``: row for row, or with ``layout=False`` of their
+    :func:`canonical` forms."""
+    got = _spatial_fields(got)
+    if not layout:
+        got, ref = canonical(got), canonical(ref)
+    return {k: _field_gap(v, ref[k]) for k, v in got.items()}
+
+
+def _memory_peak(fn, dev) -> int:
+    """Bytes ``fn()`` takes on the card at its peak."""
+    if dev.type != "cuda":
+        return 0
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn()
+    sync(dev)
+    return torch.cuda.max_memory_allocated(dev)
+
+
+def _capture_bounded():
+    """Wrap the three bounded entries where the ops modules call them;
+    returns (captured {K2, K3, K4: (args, kwargs)} of each last bounded
+    call, restore)."""
+    from popsift_tpu_torch.ops import descriptors, extrema, orientation
+    sites = [(extrema, "refine_state_octaves", "K2"),
+             (orientation, "orientation_hist_octaves", "K3"),
+             (descriptors, "descriptor_loop_octaves", "K4")]
+    captured, saved = {}, []
+    for mod, name, tag in sites:
+        real = getattr(mod, name)
+        saved.append((mod, name, real))
+
+        def wrap(*a, _real=real, _tag=tag, **k):
+            captured[_tag] = (a, k)
+            return _real(*a, **k)
+        setattr(mod, name, wrap)
+
+    def restore():
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+    return captured, restore
+
+
+def bounded_kernels(captured: dict, dev, reps: int) -> list:
+    """(e): the bounded launches of K2, K3 and K4 that one sharded
+    extraction made on a band, again, against their plain versions on the
+    same tensors (K2 bit-equal, K3 and K4 within 1e-5 x the row's max)
+    and, with the default bounds on the same stacks, bit-equal to the
+    unbounded launch; median times and bounds. Returns the JSON rows."""
+    from popsift_tpu_torch.ops.kernels import ENTRIES, desc, orient, refine
+    rows = []
+
+    def add(name, err, ms, plain_ms, bound):
+        mod, _, replaces = ENTRIES[name]
+        rows.append({"name": name, "route": "cuda", "source": mod.SOURCE,
+                     "replaces": replaces, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound[0],
+                     "bound_by": bound[1], "library_ms": None})
+        say(f"(e) {name}: max_abs_err {err:.3g}, kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library call none, bound {bound[0]:.4f} ms "
+            f"(by {bound[1]})")
+
+    a, k = captured["K2"]
+    got = refine.refine_state_octaves(*a, **k)
+    check(bool(torch.equal(got, refine.refine_state_octaves_torch(*a, **k))),
+          "(e) bounded K2 differs from its plain version")
+    plain = {kk: v for kk, v in k.items() if kk not in ("y_offsets",
+                                                         "heights")}
+    dflt = dict(plain, y_offsets=[0] * len(a[0]),
+                heights=[d.shape[1] for d in a[0]])
+    check(bool(torch.equal(refine.refine_state_octaves(*a, **dflt),
+                           refine.refine_state_octaves(*a, **plain))),
+          "(e) K2 with whole-stack bounds differs from the unbounded launch")
+    live = int(a[4].sum())
+    add("refine_octaves_bounded", 0.0,
+        median_ms(lambda: refine.refine_state_octaves(*a, **k), dev, reps),
+        median_ms(lambda: refine.refine_state_octaves_torch(*a, **k), dev,
+                  reps), refine_bound(live, a[1].shape[0]))
+
+    def held(tag, fn, fn_torch, bound):
+        a, k = captured[tag]
+        got = fn(*a, **k)
+        ref = fn_torch(*a, **k)
+        rel = rel_row_err(got, ref)
+        check(rel <= 1e-5, f"(e) bounded {tag} differs from its plain "
+              f"version by {rel} x row max")
+        plain = {kk: v for kk, v in k.items() if kk not in ("y_offsets",
+                                                             "y_bounds")}
+        dflt = dict(plain, y_offsets=[0] * len(a[0]),
+                    y_bounds=[(1, b.shape[1] - 2) for b in a[0]])
+        check(bool(torch.equal(fn(*a, **dflt), fn(*a, **plain))),
+              f"(e) {tag} with whole-stack bounds differs from the "
+              f"unbounded launch")
+        add(f"{fn.__name__}_bounded", float((got - ref).abs().max()),
+            median_ms(lambda: fn(*a, **k), dev, reps),
+            median_ms(lambda: fn_torch(*a, **k), dev, reps), bound)
+
+    a3 = captured["K3"][0]
+    held("K3", orient.orientation_hist_octaves,
+         orient.orientation_hist_octaves_torch,
+         ori_bound(a3[4][a3[6]], a3[2].shape[0]))
+    a4 = captured["K4"][0]
+    held("K4", desc.descriptor_loop_octaves,
+         desc.descriptor_loop_octaves_torch,
+         desc_bound(a4[4][a4[7]], a4[8], a4[2].shape[0]))
+    return rows
+
+
+def spatial_rank(device, frames: np.ndarray, frame4k: np.ndarray,
+                 capacity: int, capacity_4k: int, tmp: str,
+                 reps: int) -> dict:
+    """Phase 13 (b), (d) and (e) on one rank of a job whose ranks split
+    the rows (``parallel/launch.py::spawn``): frames 0 and 1 and the 4K
+    frame through ``make_sharded_extract_fn``, each against world size
+    1's result saved in ``tmp``; launches, traffic, band counts, peak
+    memory and times in turns with single-device ``extract``; on the
+    last rank also (e) on its band's bounded launches."""
+    from popsift_tpu_torch.config import SiftConfig
+    from popsift_tpu_torch.ops import kernels
+    from popsift_tpu_torch.parallel import mesh as M
+    from popsift_tpu_torch.parallel.spatial import make_sharded_extract_fn
+    from popsift_tpu_torch.pipeline import build_extract_plan, extract
+    mesh = M.make_mesh(device=device, axis_name="sp")
+    me, n = M.axis_index(mesh), M.axis_size(mesh)
+    ref = torch.load(os.path.join(tmp, "ws1.pt"))
+    out = dict(rank=me)
+    for tag, imgs, cap in (("1080p", frames, capacity),
+                           ("4k", frame4k[None], capacity_4k)):
+        H, W = imgs.shape[1:]
+        hs = H // n
+        cfg = SiftConfig(extrema_capacity=cap)
+        fn, eff = make_sharded_extract_fn(cfg, H, W, mesh)
+        plan = build_extract_plan(cfg, H, W, octave_caps=eff)
+        full = torch.from_numpy(imgs[0]).to(device)
+        bands = [torch.from_numpy(f[me * hs:(me + 1) * hs]).to(device)
+                 for f in imgs]
+        fn(bands[0])
+        sync(device)
+        kernels.reset_launch_counts()
+        fn.traffic.clear()
+        got = [fn(b) for b in bands[:1]]
+        sync(device)
+        r = dict(launches=kernels.launch_counts(), traffic=dict(fn.traffic),
+                 S=fn.layout.S, bands=fn.layout.band,
+                 band_counts=fn.band_counts.tolist())
+        got += [fn(b) for b in bands[1:]]
+        r["gaps"] = [_gaps(g, ref[f"{tag}_{i}"], layout=False)
+                     for i, g in enumerate(got)]
+        if me == 0 and tag == "1080p":
+            torch.save({f"f{i}": _spatial_fields(g) for i, g in
+                        enumerate(got)}, os.path.join(tmp, "ws2.pt"))
+        del got
+        r["peak_bytes"] = {
+            "sharded": _memory_peak(lambda: fn(bands[0]), device),
+            "extract": _memory_peak(lambda: extract(full, plan, device),
+                                    device)}
+        r["ms"] = _turns({"sharded": lambda: fn(bands[0]),
+                          "extract": lambda: extract(full, plan, device)},
+                         device, reps, mesh)
+        if tag == "1080p":
+            # every rank runs the call (its collectives need them all)
+            captured, restore = _capture_bounded()
+            try:
+                fn(bands[0])
+            finally:
+                restore()
+            if me == n - 1:
+                r["bounded_rows"] = bounded_kernels(captured, device, reps)
+            del captured
+        out[tag] = r
+        del fn, plan, full, bands
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    M.psum(torch.zeros(1, device=device), mesh)   # every rank done
+    return out
+
+
+def spatial_dpsp_rank(device, frames: np.ndarray, capacity: int,
+                      tmp: str) -> dict:
+    """Phase 13 (c) on one rank of a (2, 2) mesh: the two frames, one a
+    "dp" group, each row-sharded over its "sp" pair
+    (``make_batched_sharded_extract_fn``), gathered over "dp"; the gaps
+    to the world-size-2 results in ``tmp`` (the same row layout) and the
+    launches."""
+    from popsift_tpu_torch.config import SiftConfig
+    from popsift_tpu_torch.ops import kernels
+    from popsift_tpu_torch.parallel import mesh as M
+    from popsift_tpu_torch.parallel.batch import gather_features
+    from popsift_tpu_torch.parallel.spatial import (
+        make_batched_sharded_extract_fn)
+    m2 = M.make_mesh_2d(2, 2, names=("dp", "sp"), device=device)
+    i, j = m2.coords["dp"], m2.coords["sp"]
+    H, W = frames.shape[1:]
+    fn, _ = make_batched_sharded_extract_fn(SiftConfig(
+        extrema_capacity=capacity), H, W, m2)
+    band = torch.from_numpy(frames[i:i + 1, j * H // 2:(j + 1) * H // 2]
+                            ).to(device)
+    fn(band)
+    sync(device)
+    kernels.reset_launch_counts()
+    feats = fn(band)
+    sync(device)
+    launches = kernels.launch_counts()
+    whole = gather_features(feats, m2, "dp")
+    ref = torch.load(os.path.join(tmp, "ws2.pt"))
+    gaps = [{k: _field_gap(v[f].cpu(), ref[f"f{f}"][k])
+             for k, v in whole._asdict().items()} for f in range(2)]
+    return dict(coords=(i, j), launches=launches, gaps=gaps)
+
+
+def _mb(n_bytes: int) -> float:
+    return round(n_bytes / 2 ** 20, 1)
+
+
+def spatial_phase(frames: list, dev, card: str = "", reps: int = 5,
+                  expect: tuple | None = (BENCH_KEYPOINTS,
+                                          BENCH_DESCRIPTORS),
+                  capacity: int = 8192, frame4k: np.ndarray | None = None,
+                  capacity_4k: int = CAPACITY_4K,
+                  dryrun: str | None = None) -> dict:
+    """The spatially sharded extraction on the card: (a) world size 1 on
+    NCCL, frame 0 through ``make_sharded_extract_fn`` equal in every field
+    to ``extract`` at the effective capacities, the sharded path's
+    kernels launched (K2, K3 and K4 through their bounded entries, once),
+    0 stream syncs, ms/frame in turns with ``extract``; the 4K frame the
+    same way with peak memory; (b) and (d) world size 2 on gloo with both
+    ranks on the card, frames 0-1 and the 4K frame against (a) by phase
+    5's rule, bands, candidates, traffic, peak memory and times a rank;
+    (c) DP x SP on a (2, 2) mesh of four ranks on the card, frames 0-1
+    against (b); (e) the bounded kernels of a band against their plain
+    versions; (f) the dryrun at world size 2 (its report line ``dryrun``
+    where phase 12 ran it already: its items 2 and 2b are the spatial
+    path's). Returns the times and the JSON rows of the bounded entries
+    (their launches from (a))."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    import bench
+    from popsift_tpu_torch.config import SiftConfig
+    from popsift_tpu_torch.ops import kernels
+    from popsift_tpu_torch.parallel import mesh as M
+    from popsift_tpu_torch.parallel.launch import spawn
+    from popsift_tpu_torch.parallel.spatial import make_sharded_extract_fn
+    from popsift_tpu_torch.pipeline import build_extract_plan, extract
+    from popsift_tpu_torch.utils.device import init_distributed
+
+    t_phase = time.perf_counter()
+    say(f"phase 13 on {card}")
+    on_card = dev.type == "cuda"
+    if frame4k is None:
+        frame4k = bench.make_frame(*FRAME_4K)
+    two = np.stack(frames[:2])
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p13_")
+    init_distributed(num_processes=1, process_id=0,
+                     backend="nccl" if on_card else "gloo",
+                     init_method=f"file://{tmp}/store")
+    try:
+        mesh = M.make_mesh(device=dev, axis_name="sp")
+        refs = {}
+        for tag, imgs, cap in (("1080p", two, capacity),
+                               ("4k", frame4k[None], capacity_4k)):
+            H, W = imgs.shape[1:]
+            cfg = SiftConfig(extrema_capacity=cap)
+            fn, eff = make_sharded_extract_fn(cfg, H, W, mesh)
+            plan = build_extract_plan(cfg, H, W, octave_caps=eff)
+            x = [torch.from_numpy(f).to(dev) for f in imgs]
+            fn(x[0])
+            sync(dev)
+            kernels.reset_launch_counts()
+            feats = fn(x[0])
+            sync(dev)
+            launches = kernels.launch_counts()
+            same = []
+            for i, f in enumerate(x):
+                got = feats if i == 0 else fn(f)
+                want = extract(f, plan, dev)
+                res = _check_gaps(f"(a) {tag} frame {i} against extract",
+                                  _gaps(got, _spatial_fields(want)))
+                same.append({k: v for k, v in res.items() if v != "equal"}
+                            or "bit-equal")
+                refs[f"{tag}_{i}"] = _spatial_fields(got)
+            cand = want.octave_candidates.tolist()
+            dropped = feats.octave_dropped.tolist()
+            check(all(c < e for c, e in zip(cand, eff)) and not any(dropped),
+                  f"(a) {tag}: an octave saturated or dropped (candidates "
+                  f"{cand}, capacities {list(eff)}, dropped {dropped})")
+            counts = (int(feats.n_keypoints), int(feats.n_descriptors))
+            for name in SPATIAL_PATH:
+                check(launches[name] > 0, f"(a) {tag}: {name} not launched")
+            for name in BOUNDED + ("extrema_mask_octaves", "compact"):
+                check(launches[name] == 1, f"(a) {tag}: {name} launched "
+                      f"{launches[name]} times")
+            for name in ("refine_octaves", "orientation_hist_octaves",
+                         "descriptor_loop_octaves"):
+                check(launches[name] == 0, f"(a) {tag}: the unbounded "
+                      f"{name} launched")
+            if tag == "1080p":
+                out["launches"] = launches
+                if expect is not None:
+                    check(counts == expect, f"(a) frame 0 gave {counts}, "
+                          f"expected {expect}")
+                if on_card:
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    again = fn(x[0])
+                finally:
+                    if on_card:
+                        torch.cuda.set_sync_debug_mode("default")
+                check(all(torch.equal(a, b) for a, b in zip(again, feats)),
+                      "(a) a second run differs")
+                del again
+            peaks = {"sharded": _memory_peak(lambda: fn(x[0]), dev),
+                     "extract": _memory_peak(lambda: extract(x[0], plan, dev),
+                                             dev)}
+            t = _turns({"sharded": lambda: fn(x[0]),
+                        "extract": lambda: extract(x[0], plan, dev)},
+                       dev, reps)
+            out[f"ws1_{tag}"] = dict(ms=t, peak_mb={k: _mb(v) for k, v in
+                                                    peaks.items()})
+            say(f"(a) world size 1 ({mesh.backend}), {tag} {H} x {W}: S = "
+                f"{fn.layout.S} sharded octaves; against extract at the "
+                f"effective capacities {list(eff)}, field for field: "
+                f"{same}; frame 0 {counts[0]} / "
+                f"{counts[1]}, octave_dropped {dropped}, candidates "
+                f"{cand}; launches {launches}"
+                + ("; 0 stream syncs (sync debug mode \"error\")"
+                   if tag == "1080p" and on_card else "")
+                + f"; peak MB {out[f'ws1_{tag}']['peak_mb']}; ms/frame "
+                f"[CUDA events, host wall], median of {reps} in turns: {t}")
+            del fn, plan, x, feats, want, got
+            if on_card:
+                torch.cuda.empty_cache()
+        torch.save(refs, os.path.join(tmp, "ws1.pt"))
+        del refs
+    finally:
+        dist.destroy_process_group()
+
+    # (b), (d), (e): two ranks sharing the card, gloo through the host
+    share = f"cuda:{dev.index or 0}" if on_card else "cpu"
+    t0 = time.perf_counter()
+    ranks = spawn(spatial_rank, 2, "gloo", share,
+                  args=(two, frame4k, capacity, capacity_4k, tmp, reps),
+                  timeout=900)
+    walls = {"ws2_job_s": round(time.perf_counter() - t0, 3)}
+    rows = []
+    for r in ranks:
+        for tag in ("1080p", "4k"):
+            d = r[tag]
+            name = f"(b) rank {r['rank']} {tag}" if tag == "1080p" else \
+                f"(d) rank {r['rank']} 4K"
+            for name_ in ("extrema_mask_octaves", "compact") + BOUNDED:
+                check(d["launches"][name_] == 1, f"{name}: {name_} launched "
+                      f"{d['launches'][name_]} times")
+            res = [_check_gaps(f"{name} frame {i}", g)
+                   for i, g in enumerate(d["gaps"])]
+            unequal = [{k: v for k, v in x.items() if v != "equal"}
+                       for x in res]
+            syncs = sum(d["traffic"].get(k, 0) for k in
+                        ("exchange", "gather", "psum"))
+            peak = {k: _mb(v) for k, v in d["peak_bytes"].items()}
+            out[f"ws2_rank{r['rank']}_{tag}"] = dict(
+                ms=d["ms"], peak_mb=peak, traffic=d["traffic"])
+            say(f"{name}: S = {d['S']} sharded octaves, bands {d['bands']} "
+                f"rows; this band's candidates {d['band_counts'][0]} and "
+                f"drops {d['band_counts'][1]} per octave; against world "
+                f"size 1 (both in canonical order): "
+                f"{'bit-equal' if not any(unequal) else unequal}; launches "
+                f"{ {k: v for k, v in d['launches'].items() if v} }; "
+                f"traffic a frame {d['traffic']} ({syncs} host-staged "
+                f"collectives, each a stream sync); peak MB {peak}; "
+                f"ms/frame [CUDA events, host wall], median of {reps} in "
+                f"turns: {d['ms']}")
+        rows += r["1080p"].get("bounded_rows", [])
+
+    # (c) DP x SP, a (2, 2) mesh of four ranks on the card
+    t0 = time.perf_counter()
+    quads = spawn(spatial_dpsp_rank, 4, "gloo", share,
+                  args=(two, capacity, tmp), timeout=600)
+    walls["dpsp_job_s"] = round(time.perf_counter() - t0, 3)
+    for q in quads:
+        tag = f"(c) rank at {q['coords']}"
+        for name in BOUNDED:
+            check(q["launches"][name] == 1, f"{tag}: {name} launched "
+                  f"{q['launches'][name]} times")
+        res = [_check_gaps(f"{tag} frame {f}", g)
+               for f, g in enumerate(q["gaps"])]
+        unequal = [{k: v for k, v in x.items() if v != "equal"} for x in res]
+        say(f"{tag}: frames 0-1 against their world-size-2 results: "
+            f"{'bit-equal' if not any(unequal) else unequal}")
+
+    # (f) the dryrun on two ranks sharing the card
+    if dryrun is None:
+        dryrun, walls["dryrun_s"] = dryrun_two_ranks(dev)
+    check("spatial pyramid" in dryrun and "(equal to extract=True)"
+          in dryrun, f"(f) the dryrun's spatial items: {dryrun}")
+    say(f"(f) {dryrun}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    walls["phase_s"] = round(time.perf_counter() - t_phase, 3)
+    out["walls_s"] = walls
+    say("phase 13 times: " + json.dumps({k: v for k, v in out.items()
+                                         if k != "launches"}))
+    check(len(rows) == len(BOUNDED), "(e) did not run")
+    out["rows"] = rows
+    return out
 
 
 def profile_phase(frame: np.ndarray, dev, out_dir: str) -> None:
@@ -4093,7 +4584,12 @@ def main(argv=None) -> int:
     say("phase 11: popsift-sfm, images to model")
     sfm_cli_phase(dev)
     say("phase 12: multi-device layer (world sizes 1 and 2)")
-    parallel_phase(frames, dev, card["nvidia_smi"])
+    p12 = parallel_phase(frames, dev, card["nvidia_smi"])
+    say("phase 13: spatially sharded extraction (world sizes 1, 2, 2 x 2)")
+    spatial = spatial_phase(frames, dev, card["nvidia_smi"],
+                            dryrun=p12["dryrun"])
+    rows += spatial["rows"]
+    runs["sharded"] = spatial["launches"]
     for r in rows:
         r["launches"] = runs[LAUNCHES_FROM[r["name"]]][r["name"]]
         check(r["launches"] > 0, f"{r['name']} was launched no time in the "

@@ -692,7 +692,10 @@ extern "C" int ps_compact_octaves(const long long* table, int n_oct, int F,
     }
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
-    if (smem > 48 * 1024) {
+    // opt in on the current device whenever the launch takes dynamic shared
+    // memory: the select's static row list (16 KB) counts against the same
+    // 48 KB default, so a dynamic part of 32 KB alone would fail the launch
+    if (smem > 0) {
         err = cudaFuncSetAttribute(compact_kernel,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)smem);

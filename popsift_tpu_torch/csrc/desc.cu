@@ -49,6 +49,17 @@
 // the twin's circular-roll gradient wraps at the window border; the kernel
 // reproduces both (ROADMAP section C records this quirk).
 //
+// Row bounds (a spatially sharded row band, popsift_tpu/parallel/spatial.py):
+// each octave of the all-octave entry carries the global row of its stack's
+// row 0, y_off, and inclusive global scan rows (y_lo, y_hi) in place of
+// (1, H-2), in the scan bound only; the static window's origin stays local
+// to the stack. This is the twin's _descriptor_loop_chunk(y_bounds=)
+// (descriptors.py:430-436) with the keypoints left in global coordinates
+// (only the reads move to the band, so no keypoint row is rounded by a
+// shift). Every read goes through the window, so any bounds are safe. The
+// defaults y_off = 0, (1, H-2) give the unbounded launch bit for bit; the
+// single-octave and patch entries always take them.
+//
 // Per-pixel arithmetic is the twin's, operation for operation (the library
 // is built with -fmad=false): tha = theta - ang folded into [0, 2 pi),
 // tth = tha * 4/pi, fo = floor(tth) taken modulo 8 with non-negative
@@ -82,6 +93,9 @@ struct OctaveTable {
     int H[MAX_OCT];
     int W[MAX_OCT];
     int row_end[MAX_OCT];        // rows [row_end[o-1], row_end[o]) are octave o's
+    int y_off[MAX_OCT];          // global row of the stack's row 0
+    int y_lo[MAX_OCT];           // inclusive global scan rows
+    int y_hi[MAX_OCT];
     int n;
 };
 
@@ -96,10 +110,11 @@ __device__ __forceinline__ int div_small(int q, float inv) {
     return (int)(((float)q + 0.5f) * inv);
 }
 
-// One job's window: cell (i, j) is pixel (py0 + i, px0 + j) of the level.
+// One job's window: cell (i, j) is pixel (py0 + i, px0 + j) of the level,
+// global row y_off + py0 + i.
 struct Job {
     const float* img;
-    int H, W, P, PL, py0, px0;
+    int H, W, P, PL, py0, px0, y_off;
     float x, y, ang, crsbp, srsbp;
 };
 
@@ -114,7 +129,7 @@ __device__ __forceinline__ void pixel_terms(const Job& jb, int i, int j,
     const int yy = jb.py0 + i;
     const int xx = jb.px0 + j;
     const float fdx = (float)xx - jb.x;
-    const float fdy = (float)yy - jb.y;
+    const float fdy = (float)(yy + jb.y_off) - jb.y;
     nxg = jb.crsbp * fdx + jb.srsbp * fdy;
     nyg = jb.crsbp * fdy - jb.srsbp * fdx;
     c0 = 0.f;
@@ -200,7 +215,8 @@ descriptor_loop_kernel(OctaveTable tab, int n_rows,
         const float crsbp = ca * inv_sbp;
         const float srsbp = sa * inv_sbp;
         const int xr = __float2int_rn(x);
-        const int yr = __float2int_rn(y);
+        const int y_off = tab.y_off[o];
+        const int yr = __float2int_rn(y) - y_off;   // the stack's row
         const float* img;
         int py0, px0;
         if (PATCH) {
@@ -217,14 +233,16 @@ descriptor_loop_kernel(OctaveTable tab, int n_rows,
             px0 = clampi(xr - R, 0, max(W, P) - P);
         }
         // the job's support, intersected with the window and with the scan
-        // bounds [1, W-2] x [1, H-2]; (i, j) are window-local coordinates
+        // bounds [1, W-2] x [y_lo, y_hi]; (i, j) are window-local coordinates
         const int s = (int)ceilf(SUPPORT_F * sbp) + 2;
-        const int i_lo = max(max(0, yr - s - py0), 1 - py0);
-        const int i_hi = min(min(P - 1, yr + s - py0), H - 2 - py0);
+        const int i_lo = max(max(0, yr - s - py0), tab.y_lo[o] - y_off - py0);
+        const int i_hi = min(min(P - 1, yr + s - py0),
+                             tab.y_hi[o] - y_off - py0);
         const int j_lo = max(max(0, xr - s - px0), 1 - px0);
         const int j_hi = min(min(PL - 1, xr + s - px0), W - 2 - px0);
         const int ncol = j_hi - j_lo + 1;
-        const Job jb = {img, H, W, P, PL, py0, px0, x, y, ang, crsbp, srsbp};
+        const Job jb = {img, H, W, P, PL, py0, px0, y_off, x, y, ang, crsbp,
+                        srsbp};
 
         // this warp's tile: the box around the rotated square of half-side
         // SBP at the tile centre, clipped to the scan bounds
@@ -233,8 +251,8 @@ descriptor_loop_kernel(OctaveTable tab, int n_rows,
         const float tcy = y + sbp * (sa * cent_x + ca * cent_y);
         const int jb_lo = max(j_lo, (int)floorf(tcx - half) - px0);
         const int jb_hi = min(j_hi, (int)ceilf(tcx + half) - px0);
-        const int ib_lo = max(i_lo, (int)floorf(tcy - half) - py0);
-        const int ib_hi = min(i_hi, (int)ceilf(tcy + half) - py0);
+        const int ib_lo = max(i_lo, (int)floorf(tcy - half) - y_off - py0);
+        const int ib_hi = min(i_hi, (int)ceilf(tcy + half) - y_off - py0);
         const int bw = jb_hi - jb_lo + 1;
         const float inv_bw = bw > 0 ? 1.0f / (float)bw : 0.0f;
 
@@ -317,8 +335,10 @@ int launch(const OctaveTable& tab, int n_rows, const float* x, const float* y,
 }  // namespace
 
 // One launch over the job rows of n_oct octaves. `table` is a host array
-// i64[n_oct, 5]: blur stack address (f32[L, H, W]), L, H, W and the end of
-// the octave's rows in the job arrays (ascending; the last is the row count).
+// i64[n_oct, 8]: blur stack address (f32[L, H, W]), L, H, W, the end of the
+// octave's rows in the job arrays (ascending; the last is the row count),
+// the global row of the stack's row 0 and the inclusive global scan rows
+// (y_lo, y_hi): 0, 1 and H-2 for a whole octave.
 // `out` f32[rows, 128] is written for valid rows only.
 extern "C" int ps_descriptor_loop_octaves(const long long* table, int n_oct,
                                           const float* x, const float* y,
@@ -330,11 +350,18 @@ extern "C" int ps_descriptor_loop_octaves(const long long* table, int n_oct,
     OctaveTable tab = {};
     tab.n = n_oct;
     for (int o = 0; o < n_oct; ++o) {
-        tab.src[o] = (const float*)(uintptr_t)table[5 * o];
-        tab.L[o] = (int)table[5 * o + 1];
-        tab.H[o] = (int)table[5 * o + 2];
-        tab.W[o] = (int)table[5 * o + 3];
-        tab.row_end[o] = (int)table[5 * o + 4];
+        const long long* r = table + 8 * o;
+        for (int c = 5; c < 8; ++c)
+            if (r[c] < -0x40000000LL || r[c] > 0x40000000LL)
+                return (int)cudaErrorInvalidValue;
+        tab.src[o] = (const float*)(uintptr_t)r[0];
+        tab.L[o] = (int)r[1];
+        tab.H[o] = (int)r[2];
+        tab.W[o] = (int)r[3];
+        tab.row_end[o] = (int)r[4];
+        tab.y_off[o] = (int)r[5];
+        tab.y_lo[o] = (int)r[6];
+        tab.y_hi[o] = (int)r[7];
     }
     return launch<false>(tab, tab.row_end[n_oct - 1], x, y, sigma, level, ang,
                          valid, radius, nullptr, nullptr, 0, 0, out, stream);
@@ -354,6 +381,8 @@ extern "C" int ps_descriptor_loop(const float* blur, int L, int H, int W,
     tab.H[0] = H;
     tab.W[0] = W;
     tab.row_end[0] = n;
+    tab.y_lo[0] = 1;      // y_off 0: the whole octave
+    tab.y_hi[0] = H - 2;
     return launch<false>(tab, n, x, y, sigma, level, ang, valid, radius,
                          nullptr, nullptr, 0, 0, out, stream);
 }
@@ -374,6 +403,8 @@ extern "C" int ps_descriptor_loop_patches(const float* patches, int P, int PL,
     tab.H[0] = H;
     tab.W[0] = W;
     tab.row_end[0] = n;
+    tab.y_lo[0] = 1;      // y_off 0: the whole octave
+    tab.y_hi[0] = H - 2;
     return launch<true>(tab, n, x, y, sigma, nullptr, ang, valid, 0, y0, x0,
                         P, PL, out, stream);
 }

@@ -29,6 +29,17 @@
 //    writes the zeros of the rows that are not valid, so the output needs no
 //    fill and the host reads no count.
 //
+// Row bounds (a spatially sharded row band, popsift_tpu/parallel/spatial.py):
+// each octave carries the global row of its stack's row 0, y_off, and
+// inclusive global scan rows (y_lo, y_hi) in place of (1, H-2), JAX's
+// _orientation_hist_xla(y_bounds=) (:52-65). Keypoints stay in global
+// coordinates and only the reads move to the band, so a band whose halo
+// holds every window gives the whole frame's bits (shifting the keypoints
+// into the band instead would round their rows). The launch intersects the
+// scan rows with the band's [y_off + 1, y_off + H - 2], so the gradient's
+// reads never leave the stack. The defaults y_off = 0, (1, H-2) give the
+// unbounded launch bit for bit.
+//
 // Semantics: popsift_tpu/ops/orientation.py:_orientation_hist_xla (:52-110)
 // and s_orientation.cu:96-134. Rounding is round-half-to-even (rintf), as
 // jnp.round; the build uses -fmad=false so d^2 is rounded as in the JAX
@@ -56,6 +67,9 @@ struct OctaveTable {
     int H[MAX_OCT];
     int W[MAX_OCT];
     int row_end[MAX_OCT];        // a frame's rows [row_end[o-1], row_end[o]) are octave o's
+    int y_off[MAX_OCT];          // global row of the stack's row 0
+    int y_lo[MAX_OCT];           // inclusive global scan rows, within the
+    int y_hi[MAX_OCT];           // stack's [y_off + 1, y_off + H - 2]
     int n;
 };
 
@@ -97,6 +111,7 @@ orientation_hist_kernel(OctaveTable tab, int n_rows, int frame_rows,
         const long long lv = levels[k];
         const int layer = f * L + (lv < 0 ? 0 : (lv > L - 1 ? L - 1 : (int)lv));
         const float* img = tab.blur[o] + (size_t)layer * H * W;
+        const int y_off = tab.y_off[o];    // rows below are global
         const int xr = __float2int_rn(x);
         const int yr = __float2int_rn(y);
         const float sigw = 1.5f * sigma;
@@ -105,7 +120,8 @@ orientation_hist_kernel(OctaveTable tab, int n_rows, int frame_rows,
         const float sq_thres = (float)(rad * rad);
         // the window clipped to the scan bounds
         const int x_lo = max(xr - rad, 1), x_hi = min(xr + rad, W - 2);
-        const int y_lo = max(yr - rad, 1), y_hi = min(yr + rad, H - 2);
+        const int y_lo = max(yr - rad, tab.y_lo[o]);
+        const int y_hi = min(yr + rad, tab.y_hi[o]);
         const int bw = x_hi - x_lo + 1;
         const int npix = (bw > 0 && y_hi >= y_lo) ? bw * (y_hi - y_lo + 1) : 0;
         const float inv_bw = bw > 0 ? 1.0f / (float)bw : 0.0f;
@@ -120,7 +136,7 @@ orientation_hist_kernel(OctaveTable tab, int n_rows, int frame_rows,
             const float fdy = (float)yy - y;
             const float sq = floorf(fdx * fdx + fdy * fdy);
             if (!(sq <= sq_thres)) continue;
-            const float* row = img + (size_t)yy * W;
+            const float* row = img + (size_t)(yy - y_off) * W;
             const float gx = row[xx + 1] - row[xx - 1];
             const float gy = row[xx + W] - row[xx - W];
             const float grad = sqrtf(gx * gx + gy * gy);
@@ -145,10 +161,12 @@ orientation_hist_kernel(OctaveTable tab, int n_rows, int frame_rows,
 }  // namespace
 
 // One launch over n_rows keypoint rows: F = n_rows / frame_rows frames of
-// frame_rows rows each. `table` is a host array i64[n_oct, 5]: blur stack
-// address (f32[F*L, H, W]), L, H, W and the end of the octave's rows within
-// a frame (ascending; the last is frame_rows). `level` is i64, `valid` one
-// byte a row (0 or 1); `out` f32[n_rows, 36] is written for every row.
+// frame_rows rows each. `table` is a host array i64[n_oct, 8]: blur stack
+// address (f32[F*L, H, W]), L, H, W, the end of the octave's rows within a
+// frame (ascending; the last is frame_rows), the global row of the stack's
+// row 0 and the inclusive global scan rows (y_lo, y_hi): 0, 1 and H-2 for a
+// whole octave. `level` is i64, `valid` one byte a row (0 or 1); `out`
+// f32[n_rows, 36] is written for every row.
 extern "C" int ps_orientation_hist_octaves(const long long* table, int n_oct,
                                            int n_rows, int frame_rows,
                                            const float* x, const float* y,
@@ -162,11 +180,18 @@ extern "C" int ps_orientation_hist_octaves(const long long* table, int n_oct,
     OctaveTable tab = {};
     tab.n = n_oct;
     for (int o = 0; o < n_oct; ++o) {
-        tab.blur[o] = (const float*)(uintptr_t)table[5 * o];
-        tab.L[o] = (int)table[5 * o + 1];
-        tab.H[o] = (int)table[5 * o + 2];
-        tab.W[o] = (int)table[5 * o + 3];
-        tab.row_end[o] = (int)table[5 * o + 4];
+        const long long* r = table + 8 * o;
+        for (int c = 5; c < 8; ++c)
+            if (r[c] < -0x40000000LL || r[c] > 0x40000000LL)
+                return (int)cudaErrorInvalidValue;
+        tab.blur[o] = (const float*)(uintptr_t)r[0];
+        tab.L[o] = (int)r[1];
+        tab.H[o] = (int)r[2];
+        tab.W[o] = (int)r[3];
+        tab.row_end[o] = (int)r[4];
+        tab.y_off[o] = (int)r[5];
+        tab.y_lo[o] = (int)(r[6] > r[5] + 1 ? r[6] : r[5] + 1);
+        tab.y_hi[o] = (int)(r[7] < r[5] + r[2] - 2 ? r[7] : r[5] + r[2] - 2);
     }
     const int blocks = (n_rows + WARPS - 1) / WARPS;
     const int grid = blocks < MAX_GRID ? blocks : MAX_GRID;

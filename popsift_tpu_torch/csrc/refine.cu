@@ -44,6 +44,15 @@
 // (73,728 on the 1080p bench plan), so no count sizes the launch and the
 // host reads nothing back; one launch replaces one per octave, and the
 // per-octave outputs need no concatenation.
+//
+// Row bounds (a spatially sharded row band, popsift_tpu/parallel/spatial.py):
+// each octave of the all-octave entry also carries the global row of the
+// stack's local row 0, y_off, and the octave's full height Hg. The step
+// policy's row test is then ny + y_off < Hg - 2 and ny + y_off > 1, the
+// global form of popsift_tpu/ops/extrema.py:705-708, while every read stays
+// in the band (its halo covers the four moves). The defaults y_off = 0,
+// Hg = H give the unbounded test bit for bit; the one-octave and batched
+// entries always take them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,9 +68,11 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 
 // Refines one candidate starting at (nx, ny, nz) of the stack `dog`
 // f32[D, H, W]; writes the NOUT-column state to o.
+// Rows are tested in global coordinates: local row ny is global ny + y_off
+// of an octave Hg rows high.
 __device__ void refine_one(const float* __restrict__ dog, int nx, int ny,
-                           int nz, int D, int H, int W, int maxlevel,
-                           int vlfeat, float* __restrict__ o) {
+                           int nz, int D, int H, int W, int y_off, int Hg,
+                           int maxlevel, int vlfeat, float* __restrict__ o) {
     const size_t plane = (size_t)H * (size_t)W;
     float v = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
     float Dx = 0.f, Dy = 0.f, Ds = 0.f, DDx = 0.f, DDy = 0.f, DXy = 0.f;
@@ -134,8 +145,8 @@ __device__ void refine_one(const float* __restrict__ dog, int nx, int ny,
         // step policy (popsift s_extrema.cu:258-284; vlfeat :207-232)
         const int tx = ((sx >= 0.6f && nx < W - 2) ? 1 : 0)
                      - ((sx <= -0.6f && nx > 1) ? 1 : 0);
-        const int ty = ((sy >= 0.6f && ny < H - 2) ? 1 : 0)
-                     - ((sy <= -0.6f && ny > 1) ? 1 : 0);
+        const int ty = ((sy >= 0.6f && ny + y_off < Hg - 2) ? 1 : 0)
+                     - ((sy <= -0.6f && ny + y_off > 1) ? 1 : 0);
         const int tz = vlfeat ? 0
                      : ((ss >= 0.6f && nz < maxlevel - 1) ? 1 : 0)
                        - ((ss <= -0.6f && nz > 1) ? 1 : 0);
@@ -171,7 +182,7 @@ __global__ void refine_kernel(const float* __restrict__ dog,
                               float* __restrict__ out) {
     const int k = blockIdx.x * blockDim.x + threadIdx.x;
     if (k >= n) return;
-    refine_one(dog, x0[k], y0[k], z0[k], D, H, W, maxlevel, vlfeat,
+    refine_one(dog, x0[k], y0[k], z0[k], D, H, W, 0, H, maxlevel, vlfeat,
                out + (size_t)k * NOUT);
 }
 
@@ -188,7 +199,7 @@ __global__ void refine_kernel_batched(const float* __restrict__ dog,
     const int f = k / cap;
     if (k - f * cap >= n_found[f]) return;    // rows past the count stay 0
     const float* vol = dog + (size_t)f * (size_t)D * (size_t)H * (size_t)W;
-    refine_one(vol, x0[k], y0[k], z0[k], D, H, W, maxlevel, vlfeat,
+    refine_one(vol, x0[k], y0[k], z0[k], D, H, W, 0, H, maxlevel, vlfeat,
                out + (size_t)k * NOUT);
 }
 
@@ -200,6 +211,8 @@ struct RefineTable {
     int H[MAX_OCT];
     int W[MAX_OCT];
     int row_end[MAX_OCT];         // rows [row_end[o-1], row_end[o]) of a frame
+    int y_off[MAX_OCT];           // global row of the stack's local row 0
+    int Hg[MAX_OCT];              // the octave's global height
     int n;
 };
 
@@ -225,7 +238,8 @@ __global__ void refine_octaves_kernel(RefineTable t,
     }
     const int D = t.D[o], H = t.H[o], W = t.W[o];
     const float* vol = t.dog[o] + (size_t)f * (size_t)D * (size_t)H * (size_t)W;
-    refine_one(vol, x0[k], y0[k], z0[k], D, H, W, maxlevel, vlfeat, dst);
+    refine_one(vol, x0[k], y0[k], z0[k], D, H, W, t.y_off[o], t.Hg[o],
+               maxlevel, vlfeat, dst);
 }
 
 }  // namespace
@@ -253,10 +267,11 @@ extern "C" int ps_refine_batched(const float* dog, const int* x0,
 }
 
 // One launch over the candidate rows of n_oct octaves of F frames. `table` is
-// a host array i64[n_oct, 5]: DoG address (f32[F*D, H, W]), D, H, W and the
+// a host array i64[n_oct, 7]: DoG address (f32[F*D, H, W]), D, H, W, the
 // octave's last row within a frame (its first is the previous octave's
-// last); x0, y0, z0 are i32[F * rows], n_found i64[F, n_oct], out
-// f32[F * rows, 16], every row written.
+// last), the global row of the stack's row 0 and the octave's global height
+// (0 and H for a whole octave); x0, y0, z0 are i32[F * rows], n_found
+// i64[F, n_oct], out f32[F * rows, 16], every row written.
 extern "C" int ps_refine_octaves(const long long* table, int n_oct, int F,
                                  const int* x0, const int* y0, const int* z0,
                                  const long long* n_found, int maxlevel,
@@ -266,15 +281,18 @@ extern "C" int ps_refine_octaves(const long long* table, int n_oct, int F,
     t.n = n_oct;
     long long prev = 0;
     for (int o = 0; o < n_oct; ++o) {
-        const long long* r = table + 5 * o;
+        const long long* r = table + 7 * o;
         if (r[1] < 1 || r[2] < 1 || r[3] < 1 || r[4] < prev
-            || r[4] > 0x7fffffffLL / F)
+            || r[4] > 0x7fffffffLL / F || r[5] < -0x40000000LL
+            || r[5] > 0x40000000LL || r[6] < 1 || r[6] > 0x40000000LL)
             return (int)cudaErrorInvalidValue;
         t.dog[o] = (const float*)(uintptr_t)r[0];
         t.D[o] = (int)r[1];
         t.H[o] = (int)r[2];
         t.W[o] = (int)r[3];
         t.row_end[o] = (int)r[4];
+        t.y_off[o] = (int)r[5];
+        t.Hg[o] = (int)r[6];
         prev = r[4];
     }
     const long long n = (long long)F * t.row_end[n_oct - 1];

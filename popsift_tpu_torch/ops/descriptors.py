@@ -411,20 +411,26 @@ def compute_descriptors(blur: torch.Tensor, jobs: DescriptorJobs,
 
 
 def compute_descriptors_octaves(blurs, jobs: DescriptorJobs, row_ends,
-                                cfg: SiftConfig,
-                                plain: bool = False) -> torch.Tensor:
+                                cfg: SiftConfig, plain: bool = False,
+                                y_offsets=None,
+                                y_bounds=None) -> torch.Tensor:
     """Unnormalized f32[F, 128] descriptors of the job rows of all
     octaves (octave o owns rows [row_ends[o-1], row_ends[o]) of ``jobs``
     and reads ``blurs[o]``): ``loop`` in one launch of kernel K4 or, with
     ``plain``, by its plain version; the other variants in plain torch
     (:func:`descriptor_variant`). Only ``jobs.valid`` decides which rows
-    count; no count is read back."""
+    count; no count is read back. A row band passes its octaves' global
+    row offsets and scan rows (``y_offsets``, ``y_bounds``: K4's row
+    bounds). As in JAX (descriptors.py:555-562) only ``loop`` honours
+    them; the other variants read each stack as it lies, so a caller
+    gives them the jobs in the stacks' own rows."""
     if cfg.desc_mode != "loop":
         return descriptor_variant(blurs, jobs, row_ends, cfg)
     fn = descriptor_loop_octaves_torch if plain else descriptor_loop_octaves
     return fn(list(blurs), [int(e) for e in row_ends], jobs.x, jobs.y,
               jobs.sigma, jobs.level, jobs.ang, jobs.valid,
-              loop_patch_radius(cfg))
+              loop_patch_radius(cfg), y_offsets=y_offsets,
+              y_bounds=y_bounds)
 
 
 def normalize_descriptors(desc: torch.Tensor, cfg: SiftConfig

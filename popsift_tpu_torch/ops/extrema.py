@@ -26,6 +26,15 @@ Port of :mod:`popsift_tpu.ops.extrema` (default, dense-stack path):
   :func:`collect_refined_batched` are the one-octave forms (the latter
   two for F frames' stacks laid back to back on the layer axis), which
   call K2's one-octave entries; no extraction path calls them.
+
+Row bands (``parallel/spatial.py``): a band's DoG stack carries halo rows
+above and below the rows it owns. Its detection is the same all-octave
+stages: the masks (K1, unchanged), :func:`band_masks` clearing the rows
+outside the band's own (JAX's ``collect_candidates(row_window=)``,
+:326-329), the compaction, :func:`refine_octaves` with each octave's
+global row offset and height (K2's row bounds) and
+:func:`finalize_refined` with each row's offset (``y_offset``), which
+puts the refined rows in global coordinates.
 """
 
 from __future__ import annotations
@@ -169,16 +178,31 @@ def compact_octaves(masks, cfg: SiftConfig, caps, F: int = 1,
                              F))
 
 
+def band_masks(masks, windows) -> list:
+    """The candidate masks of row bands, each octave's rows outside its
+    window ``(lo, hi)`` of local rows cleared in place (None keeps the
+    octave's mask): a band detects only the rows it owns."""
+    for m, w in zip(masks, windows):
+        if w is not None:
+            m[..., :w[0], :] = False
+            m[..., w[1]:, :] = False
+    return list(masks)
+
+
 def refine_octaves(dogs, rows: CandidateRows, cfg: SiftConfig, caps,
-                   F: int = 1, plain: bool = False) -> torch.Tensor:
+                   F: int = 1, plain: bool = False, y_offsets=None,
+                   heights=None) -> torch.Tensor:
     """f32[F*Ktot, 16] refinement state of the candidate rows of all
     octaves of F frames (``dogs``: per octave f32[F*D, H_o, W_o]), rows
     past their octave's count zero: K2's one launch (or its plain
-    version with ``plain``)."""
+    version with ``plain``). For row bands ``y_offsets`` and ``heights``
+    give each octave's global row of its stack's row 0 and its global
+    height (K2's row bounds)."""
     fn = refine_state_octaves_torch if plain else refine_state_octaves
     return fn(list(dogs), rows.x0, rows.y0, rows.z0, rows.n_found,
               tuple(caps), F, maxlevel=cfg.total_levels - 1,
-              vlfeat=cfg.sift_mode == "vlfeat")
+              vlfeat=cfg.sift_mode == "vlfeat", y_offsets=y_offsets,
+              heights=heights)
 
 
 def window_patches(dogs, rows: CandidateRows, caps, F: int = 1,
@@ -346,13 +370,17 @@ def refine_patches(patches: torch.Tensor, x0: torch.Tensor,
 
 def finalize_refined(state: torch.Tensor, cand_valid: torch.Tensor,
                      cfg: SiftConfig, oct_w, oct_h, n_candidates,
-                     n_dropped) -> OctaveExtrema:
+                     n_dropped, y_offset=None) -> OctaveExtrema:
     """Accept tests over refined candidates (s_extrema.cu:455-493), port
     of popsift_tpu.ops.extrema.finalize_refined (:542-601): excessive
     movement, bounds, contrast, curvature sign and edge ratio, plus sigma
     and grid cell. ``oct_w``/``oct_h`` are ints or per-row tensors, the
     counts ints or tensors; given tensors on ``state``'s device (as the
-    extraction paths give them) nothing is copied from the host."""
+    extraction paths give them) nothing is copied from the host.
+    ``y_offset`` (an int or per-row tensor) is the global row of a row
+    band's local row 0: the rows, their bound test and their cells are
+    then global, with ``oct_h`` the full octave height (JAX's
+    ``y_offset``, :565-571)."""
     (nx, nyv, nzv, dx, dy, dz, v,
      Dx, Dy, Ds, DDx, DDy, DXy) = (state[:, i] for i in range(13))
     dev = state.device
@@ -363,7 +391,7 @@ def finalize_refined(state: torch.Tensor, cand_valid: torch.Tensor,
 
     ok = cand_valid & ~((dx >= 1.5) | (dy >= 1.5) | (dz >= 1.5))
     xn = nx + dx
-    yn = nyv + dy
+    yn = nyv + dy if y_offset is None else (nyv + y_offset) + dy
     sn = nzv + dz
     ok = ok & (xn >= 0.0) & (xn <= Wf - 1.0) & (yn >= 0.0) \
         & (yn <= Hf - 1.0) & (sn >= 0.0) & (sn <= maxlevel)

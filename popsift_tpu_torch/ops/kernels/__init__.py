@@ -17,7 +17,11 @@ and ``refine_octaves`` K2's launch over the rows of all octaves and
 frames; ``refine`` and ``refine_batched`` the same kernel on one octave,
 off every extraction path. The bucketed
 entries of K3 and K4 add no kernel of their own: each counts the
-calls in which it launched the kernel beneath it.
+calls in which it launched the kernel beneath it. ``refine_octaves_bounded``,
+``orientation_hist_octaves_bounded`` and ``descriptor_loop_octaves_bounded``
+count the launches over all octaves that carry row bounds (a row band of
+``parallel/spatial.py``); the same calls without bounds count in the
+unbounded entries.
 """
 
 from . import (blur_chain, blur_dog, compact, desc, extrema_mask, orient,
@@ -51,6 +55,12 @@ ENTRIES = {
     orient.NAME_BUCKETED: (orient, "launches_bucketed",
                            orient.REPLACES_BUCKETED),
     desc.NAME_BUCKETED: (desc, "launches_bucketed", desc.REPLACES_BUCKETED),
+    refine.NAME_OCTAVES_BOUNDED: (refine, "launches_octaves_bounded",
+                                  refine.REPLACES_OCTAVES_BOUNDED),
+    orient.NAME_OCTAVES_BOUNDED: (orient, "launches_octaves_bounded",
+                                  orient.REPLACES_OCTAVES_BOUNDED),
+    desc.NAME_OCTAVES_BOUNDED: (desc, "launches_octaves_bounded",
+                                desc.REPLACES_OCTAVES_BOUNDED),
 }
 
 

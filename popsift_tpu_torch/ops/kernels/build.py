@@ -77,21 +77,21 @@ _SIGNATURES = {
     # stream
     "ps_refine_batched": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
                           _I, _VP, _VP),
-    # table (host i64[n_oct, 5]), n_oct, F, x0, y0, z0, n_found, maxlevel,
+    # table (host i64[n_oct, 7]), n_oct, F, x0, y0, z0, n_found, maxlevel,
     # vlfeat, out, stream
     "ps_refine_octaves": (_VP, _I, _I, _VP, _VP, _VP, _VP, _I, _I, _VP, _VP),
     # table (host i64[n_oct, 15]), n_oct, F, rows, scratch, x0, y0, z0,
     # n_found, n_dropped, stream
     "ps_compact_octaves": (_VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP,
                            _VP),
-    # table (host i64[n_oct, 5]), n_oct, n_rows, frame_rows, x, y, sigma,
+    # table (host i64[n_oct, 8]), n_oct, n_rows, frame_rows, x, y, sigma,
     # level, valid, out, stream
     "ps_orientation_hist_octaves": (_VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP,
                                     _VP, _VP),
     # blur, L, H, W, x, y, sigma, level, ang, valid, n, radius, out, stream
     "ps_descriptor_loop": (_VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP,
                            _I, _I, _VP, _VP),
-    # table (host i64[n_oct, 5]), n_oct, x, y, sigma, level, ang, valid,
+    # table (host i64[n_oct, 8]), n_oct, x, y, sigma, level, ang, valid,
     # radius, out, stream
     "ps_descriptor_loop_octaves": (_VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _I,
                                    _VP, _VP),

@@ -31,6 +31,17 @@ Two more entries close the JAX package's descriptor kernels:
   ``(sigma_hi, radius)`` buckets, one K4 launch per bucket with that
   bucket's window radius, gathered back in row order. The extraction
   path launches K4 once per frame or batch and does not call them.
+
+Row bounds: on a spatially sharded row band (``parallel/spatial.py``)
+each octave of :func:`descriptor_loop_octaves` takes the global row of
+its stack's row 0 (``y_offsets``) and inclusive global scan rows in
+place of ``(1, H-2)`` (``y_bounds``), in the scan bound only (the static
+window's origin stays local to the stack), as JAX's
+``_descriptor_loop_chunk(y_bounds=)`` (descriptors.py:392-436) with the
+keypoints left in global coordinates (orient.py's docstring says why).
+Such a call counts in ``launches_octaves_bounded``
+(``descriptor_loop_octaves_bounded``); without bounds it is today's
+launch, bit for bit.
 """
 
 from __future__ import annotations
@@ -43,13 +54,15 @@ import torch
 
 from ...config import DESC_BINS, DESC_MAGNIFY
 from . import build
-from .orient import _gather_patches
+from .orient import _gather_patches, row_specs
 
 NAME = "descriptor_loop"
 SOURCE = "popsift_tpu_torch/csrc/desc.cu"
 REPLACES = "popsift_tpu/ops/pallas/desc.py:318"
 NAME_OCTAVES = "descriptor_loop_octaves"
 REPLACES_OCTAVES = REPLACES     # the same TPU kernel, once per octave there
+NAME_OCTAVES_BOUNDED = "descriptor_loop_octaves_bounded"
+REPLACES_OCTAVES_BOUNDED = REPLACES
 NAME_PATCHES = "descriptor_loop_patches"
 REPLACES_PATCHES = "popsift_tpu/ops/pallas/desc.py:192"
 NAME_BUCKETED = "descriptor_loop_bucketed"
@@ -57,19 +70,22 @@ REPLACES_BUCKETED = "popsift_tpu/ops/pallas/desc.py:383"
 MAX_OCTAVES = 16    # csrc/desc.cu MAX_OCT
 launches = 0
 launches_octaves = 0
+launches_octaves_bounded = 0
 launches_patches = 0
 launches_bucketed = 0    # bucketed calls that reached K4 on a CUDA device
 _TWO_PI = float(np.float32(2.0 * math.pi))
 _FOUR_OVER_PI = float(np.float32(4.0 / math.pi))
 
 
-def _loop_terms(dxv, dyv, px, py, xk, yk, sk, ak, valid, H: int, W: int
-                ) -> torch.Tensor:
+def _loop_terms(dxv, dyv, px, py, xk, yk, sk, ak, valid, H: int, W: int,
+                y_bounds=None) -> torch.Tensor:
     """f32[m, 128] loop descriptors of m jobs from their windows' pixel
     gradients ``dxv``/``dyv`` f32[m, P, PL] and pixel coordinates
     ``px`` i64[m, 1, PL] / ``py`` i64[m, P, 1]:
     popsift_tpu.ops.descriptors._descriptor_loop_chunk (:416-473) after
-    the gradient, the same for every way of cutting the window."""
+    the gradient, the same for every way of cutting the window.
+    ``y_bounds``: the inclusive scan rows, by default (1, H-2)."""
+    y_lo, y_hi = (1, H - 2) if y_bounds is None else y_bounds
     m, P, PL = dxv.shape
     centers = torch.arange(4, dtype=torch.float32, device=dxv.device) - 1.5
     mod = torch.sqrt(dxv * dxv + dyv * dyv)
@@ -86,7 +102,7 @@ def _loop_terms(dxv, dyv, px, py, xk, yk, sk, ak, valid, H: int, W: int
     fdy = py.float() - yk[:, None, None]
     nxg = crsbp * fdx + srsbp * fdy
     nyg = crsbp * fdy - srsbp * fdx
-    inb = (px >= 1) & (px <= W - 2) & (py >= 1) & (py <= H - 2)
+    inb = (px >= 1) & (px <= W - 2) & (py >= y_lo) & (py <= y_hi)
 
     tha = th - ak[:, None, None]
     tha = torch.where(tha < 0.0, tha + _TWO_PI, tha)
@@ -123,10 +139,13 @@ def _loop_terms(dxv, dyv, px, py, xk, yk, sk, ak, valid, H: int, W: int
 
 
 def descriptor_loop_torch(blur, x, y, sigma, level, ang, valid, n: int,
-                          radius: int, chunk: int = 256) -> torch.Tensor:
+                          radius: int, chunk: int = 256, y_off: int = 0,
+                          y_bounds=None) -> torch.Tensor:
     """Plain version: popsift_tpu.ops.descriptors._descriptor_loop_chunk
     over jobs [0, n), chunked over jobs (descriptors.py:563), with the
-    static window of ``radius`` (loop_patch_radius)."""
+    static window of ``radius`` (loop_patch_radius). The stack's row 0 is
+    global row ``y_off``, ``y`` is global and ``y_bounds`` the inclusive
+    global scan rows (default (1, H-2))."""
     L, H, W = blur.shape
     F = x.shape[0]
     out = torch.zeros((F, 128), dtype=torch.float32, device=blur.device)
@@ -136,15 +155,16 @@ def descriptor_loop_torch(blur, x, y, sigma, level, ang, valid, n: int,
         e = min(n, s + chunk)
         xr = torch.round(x[s:e]).long()
         yr = torch.round(y[s:e]).long()
-        patches, y0, x0 = _gather_patches(blur, level[s:e], yr, xr, radius)
+        patches, y0, x0 = _gather_patches(blur, level[s:e], yr - y_off, xr,
+                                          radius)
         px = x0[:, None, None] + ii[None, None, :]
-        py = y0[:, None, None] + ii[None, :, None]
+        py = y0[:, None, None] + ii[None, :, None] + y_off     # global rows
         # border cells of the window are outside every valid support, so
         # the circular roll is the JAX twin's gradient exactly
         dxv = torch.roll(patches, -1, 2) - torch.roll(patches, 1, 2)
         dyv = torch.roll(patches, -1, 1) - torch.roll(patches, 1, 1)
         out[s:e] = _loop_terms(dxv, dyv, px, py, x[s:e], y[s:e], sigma[s:e],
-                               ang[s:e], valid[s:e], H, W)
+                               ang[s:e], valid[s:e], H, W, y_bounds)
     return out
 
 
@@ -184,33 +204,39 @@ def _kernel_args(x, y, sigma, level, ang, valid):
 
 
 def descriptor_loop_octaves_torch(blurs, row_ends, x, y, sigma, level, ang,
-                                  valid, radius: int) -> torch.Tensor:
+                                  valid, radius: int, y_offsets=None,
+                                  y_bounds=None) -> torch.Tensor:
     """Plain version of :func:`descriptor_loop_octaves`: per octave the
     valid rows gathered to the front in row order, through
     :func:`descriptor_loop_torch`, scattered back."""
+    specs = row_specs(NAME_OCTAVES, blurs, y_offsets, y_bounds)
     out = torch.zeros((x.shape[0], 128), dtype=torch.float32,
                       device=x.device)
     start = 0
-    for blur, end in zip(blurs, row_ends):
+    for o, (blur, end) in enumerate(zip(blurs, row_ends)):
         rows = start + valid[start:end].nonzero().squeeze(1)
         if rows.numel():
             out[rows] = descriptor_loop_torch(
                 blur, x[rows], y[rows], sigma[rows], level[rows], ang[rows],
-                valid[rows], rows.numel(), radius)
+                valid[rows], rows.numel(), radius, y_off=specs[o][0],
+                y_bounds=specs[o][1:])
         start = end
     return out
 
 
 def descriptor_loop_octaves(blurs, row_ends, x, y, sigma, level, ang, valid,
-                            radius: int) -> torch.Tensor:
+                            radius: int, y_offsets=None,
+                            y_bounds=None) -> torch.Tensor:
     """f32[F, 128] raw descriptors of the job rows of several octaves in
     one launch. ``blurs``: the octaves' f32[L_o, H_o, W_o] blur stacks;
     ``row_ends``: ascending ends of each octave's rows in the job arrays
     (octave o owns rows [row_ends[o-1], row_ends[o]), the last is F);
     ``level`` indexes the octave's own stack (a batch adds ``frame * L``).
-    Rows that are not valid are zero; no count is read back. Plain
-    version on the CPU, kernel K4 on a CUDA device."""
-    global launches_octaves
+    A row band's octave gives the global row of its stack's row 0
+    (``y_offsets``) and inclusive global scan rows (``y_bounds``); see
+    the module docstring. Rows that are not valid are zero; no count is
+    read back. Plain version on the CPU, kernel K4 on a CUDA device."""
+    global launches_octaves, launches_octaves_bounded
     F = x.shape[0]
     if len(blurs) != len(row_ends) or not blurs or list(row_ends) != sorted(
             row_ends) or row_ends[-1] != F:
@@ -220,9 +246,11 @@ def descriptor_loop_octaves(blurs, row_ends, x, y, sigma, level, ang, valid,
         if b.dim() != 3 or b.dtype != torch.float32:
             raise ValueError("descriptor_loop_octaves expects f32[L, H, W] "
                              "stacks")
+    specs = row_specs(NAME_OCTAVES, blurs, y_offsets, y_bounds)
     if blurs[0].device.type == "cpu":
         return descriptor_loop_octaves_torch(blurs, row_ends, x, y, sigma,
-                                             level, ang, valid, radius)
+                                             level, ang, valid, radius,
+                                             y_offsets, y_bounds)
     if len(blurs) > MAX_OCTAVES:
         raise ValueError(f"descriptor_loop_octaves: {len(blurs)} octaves "
                          f"(at most {MAX_OCTAVES})")
@@ -234,15 +262,21 @@ def descriptor_loop_octaves(blurs, row_ends, x, y, sigma, level, ang, valid,
         return out
     # by-value launch table: the stacks stay alive in ``blurs`` and the
     # launch is ordered on the current stream, so raw addresses are safe
-    table = np.asarray([[b.data_ptr(), *b.shape, end]
-                        for b, end in zip(blurs, row_ends)], np.int64)
+    bounded = y_offsets is not None or y_bounds is not None
+    table = np.asarray([[b.data_ptr(), *b.shape, end, *spec]
+                        for b, end, spec in zip(blurs, row_ends, specs)],
+                       np.int64)
     lib = build.load_library()
     build.launch(
-        NAME_OCTAVES, x, lib.ps_descriptor_loop_octaves,
+        NAME_OCTAVES_BOUNDED if bounded else NAME_OCTAVES, x,
+        lib.ps_descriptor_loop_octaves,
         table.ctypes.data_as(ctypes.c_void_p), len(blurs), x.data_ptr(),
         y.data_ptr(), sigma.data_ptr(), level.data_ptr(), ang.data_ptr(),
         valid.data_ptr(), radius, out.data_ptr())
-    launches_octaves += 1
+    if bounded:
+        launches_octaves_bounded += 1
+    else:
+        launches_octaves += 1
     return out
 
 

@@ -22,6 +22,20 @@ a row's bits do not depend on the launch that holds it.
 back in row order. K3 walks each keypoint's own window, so the buckets
 change no block's work, only which launch holds it; the static radii
 bound the plain version's window. No extraction path calls it.
+
+Row bounds: on a spatially sharded row band (``parallel/spatial.py``)
+each octave of :func:`orientation_hist_octaves` takes the global row of
+its stack's row 0 (``y_offsets``) and inclusive global scan rows in
+place of ``(1, H-2)`` (``y_bounds``), JAX's
+``_orientation_hist_xla(y_bounds=)`` (orientation.py:52-65). The
+keypoints stay in global coordinates and only the reads move to the
+band, so a band whose halo holds every window gives the whole frame's
+bits (JAX shifts the keypoints into the band, which rounds their rows;
+offset 0 with local bounds is JAX's form). The scan rows are intersected
+with the band's ``[y_off + 1, y_off + H - 2]`` so that the gradient never
+reads past the stack. Such a call counts in
+``launches_octaves_bounded`` (``orientation_hist_octaves_bounded``);
+without bounds it is today's launch, bit for bit.
 """
 
 from __future__ import annotations
@@ -43,9 +57,12 @@ NAME_BUCKETED = "orientation_hist_bucketed"
 REPLACES_BUCKETED = "popsift_tpu/ops/pallas/orient.py:251"
 NAME_OCTAVES = "orientation_hist_octaves"
 REPLACES_OCTAVES = REPLACES
+NAME_OCTAVES_BOUNDED = "orientation_hist_octaves_bounded"
+REPLACES_OCTAVES_BOUNDED = REPLACES
 MAX_OCTAVES = 16         # MAX_OCT of csrc/orient.cu
 launches = 0
 launches_octaves = 0
+launches_octaves_bounded = 0
 launches_bucketed = 0    # bucketed calls that reached K3 on a CUDA device
 # f32 constants of the JAX code (np.float32(math.pi), np.float32(2 pi))
 _PI = float(np.float32(math.pi))
@@ -71,12 +88,36 @@ def _gather_patches(img: torch.Tensor, level: torch.Tensor,
     return flat[idx], y0, x0
 
 
+def row_specs(name: str, stacks, y_offsets, y_bounds) -> list:
+    """Per octave (y_off, y_lo, y_hi): the global row of the stack's row
+    0 (``y_offsets``, default 0) and the inclusive global scan rows
+    (``y_bounds``, default the stack's rows 1 .. H-2), each within
+    +-2^30 (the kernels take them as int)."""
+    n = len(stacks)
+    offs = [0] * n if y_offsets is None else [int(v) for v in y_offsets]
+    if len(offs) != n or (y_bounds is not None and len(y_bounds) != n):
+        raise ValueError(f"{name}: row bounds for {n} octaves expected")
+    bounds = ([(o + 1, o + s.shape[-2] - 2) for o, s in zip(offs, stacks)]
+              if y_bounds is None else
+              [(int(lo), int(hi)) for lo, hi in y_bounds])
+    out = [(o, lo, hi) for o, (lo, hi) in zip(offs, bounds)]
+    if any(abs(v) > 1 << 30 for spec in out for v in spec):
+        raise ValueError(f"{name}: row bounds {out} out of range")
+    return out
+
+
 def orientation_hist_torch(blur, x, y, sigma, level, valid, n: int,
-                           radius: int, chunk: int = 512) -> torch.Tensor:
+                           radius: int, chunk: int = 512, y_off: int = 0,
+                           y_bounds=None) -> torch.Tensor:
     """Plain version: popsift_tpu.ops.orientation._orientation_hist_xla
     (:52-110) on rows [0, n), chunked over rows, with invalid rows
-    zeroed. ``radius`` is the static window bound max_ori_radius."""
+    zeroed. ``radius`` is the static window bound max_ori_radius. The
+    stack's row 0 is global row ``y_off``, ``y`` is global and
+    ``y_bounds`` the inclusive global scan rows (see the module
+    docstring)."""
     L, H, W = blur.shape
+    y_lo, y_hi = (1, H - 2) if y_bounds is None else y_bounds
+    y_lo, y_hi = max(y_lo, y_off + 1), min(y_hi, y_off + H - 2)
     K = x.shape[0]
     out = torch.zeros((K, ORI_NBINS), dtype=torch.float32,
                       device=blur.device)
@@ -88,9 +129,10 @@ def orientation_hist_torch(blur, x, y, sigma, level, valid, n: int,
         xk, yk, sk = x[s:e], y[s:e], sigma[s:e]
         xr = torch.round(xk).long()
         yr = torch.round(yk).long()
-        patches, y0, x0 = _gather_patches(blur, level[s:e], yr, xr, R)
+        patches, y0, x0 = _gather_patches(blur, level[s:e], yr - y_off, xr,
+                                          R)
         xx = x0[:, None, None] + ii[None, None, :]
-        yy = y0[:, None, None] + ii[None, :, None]
+        yy = y0[:, None, None] + ii[None, :, None] + y_off     # global rows
         dxv = torch.roll(patches, -1, 2) - torch.roll(patches, 1, 2)
         dyv = torch.roll(patches, -1, 1) - torch.roll(patches, 1, 1)
         grad = torch.sqrt(dxv * dxv + dyv * dyv)
@@ -101,7 +143,7 @@ def orientation_hist_torch(blur, x, y, sigma, level, valid, n: int,
         sq_thres = (rad * rad).float()
         inb = (((xx - xr[:, None, None]).abs() <= rad[:, None, None])
                & ((yy - yr[:, None, None]).abs() <= rad[:, None, None])
-               & (xx >= 1) & (xx <= W - 2) & (yy >= 1) & (yy <= H - 2))
+               & (xx >= 1) & (xx <= W - 2) & (yy >= y_lo) & (yy <= y_hi))
         fdx = xx.float() - xk[:, None, None]
         fdy = yy.float() - yk[:, None, None]
         sq = torch.floor(fdx * fdx + fdy * fdy)
@@ -122,11 +164,13 @@ def orientation_hist_torch(blur, x, y, sigma, level, valid, n: int,
 
 
 def _launch(name: str, blurs, row_ends, x, y, sigma, level, valid, F: int,
-            n_rows: int | None = None) -> torch.Tensor:
+            n_rows: int | None = None, specs=None) -> torch.Tensor:
     """One launch of K3 over rows [0, n_rows) (default: all K rows) of F
     frames' row arrays; returns f32[K, 36] with the rows past ``n_rows``
     zero. ``level`` is taken as i64 and ``valid`` as one byte a row, the
-    types the pipeline holds, so neither is copied."""
+    types the pipeline holds, so neither is copied. ``specs``: per
+    octave (y_off, y_lo, y_hi) (:func:`row_specs`), default the whole
+    stacks."""
     if not 1 <= len(blurs) <= MAX_OCTAVES:
         raise ValueError(f"{name}: {len(blurs)} octaves (1 to {MAX_OCTAVES})")
     x, y, sigma = (t.to(torch.float32).contiguous() for t in (x, y, sigma))
@@ -143,9 +187,11 @@ def _launch(name: str, blurs, row_ends, x, y, sigma, level, valid, F: int,
         return out
     # by-value launch table: the stacks stay alive in ``blurs`` and the
     # launch is ordered on the current stream, so raw addresses are safe
+    specs = specs or row_specs(name, blurs, None, None)
     table = np.asarray([[b.data_ptr(), b.shape[0] // F, b.shape[1],
-                         b.shape[2], end]
-                        for b, end in zip(blurs, row_ends)], np.int64)
+                         b.shape[2], end, *spec]
+                        for b, end, spec in zip(blurs, row_ends, specs)],
+                       np.int64)
     lib = build.load_library()
     build.launch(
         name, x, lib.ps_orientation_hist_octaves,
@@ -187,16 +233,18 @@ def _check_octaves(blurs, row_ends, K: int, F: int) -> None:
 
 
 def orientation_hist_octaves_torch(blurs, row_ends, x, y, sigma, level, valid,
-                                   radius: int, F: int = 1) -> torch.Tensor:
+                                   radius: int, F: int = 1, y_offsets=None,
+                                   y_bounds=None) -> torch.Tensor:
     """Plain version of :func:`orientation_hist_octaves`: per frame and
     octave the valid rows gathered to the front in row order, through
     :func:`orientation_hist_torch`, scattered back."""
     K = x.shape[0]
     _check_octaves(blurs, row_ends, K, F)
+    specs = row_specs(NAME_OCTAVES, blurs, y_offsets, y_bounds)
     out = torch.zeros((K, ORI_NBINS), dtype=torch.float32, device=x.device)
     for f in range(F):
         start = f * (K // F)
-        for blur, end in zip(blurs, row_ends):
+        for o, (blur, end) in enumerate(zip(blurs, row_ends)):
             stop = f * (K // F) + end
             L = blur.shape[0] // F
             rows = start + valid[start:stop].nonzero().squeeze(1)
@@ -204,29 +252,41 @@ def orientation_hist_octaves_torch(blurs, row_ends, x, y, sigma, level, valid,
                 out[rows] = orientation_hist_torch(
                     blur, x[rows], y[rows], sigma[rows],
                     level[rows].clamp(0, L - 1) + f * L, valid[rows],
-                    rows.numel(), radius)
+                    rows.numel(), radius, y_off=specs[o][0],
+                    y_bounds=specs[o][1:])
             start = stop
     return out
 
 
 def orientation_hist_octaves(blurs, row_ends, x, y, sigma, level, valid,
-                             radius: int, F: int = 1) -> torch.Tensor:
+                             radius: int, F: int = 1, y_offsets=None,
+                             y_bounds=None) -> torch.Tensor:
     """f32[K, 36] raw histograms of the keypoint rows of several octaves
     and F frames in one launch. ``blurs``: the octaves' blur stacks, F
     frames back to back on the layer axis, f32[F*L_o, H_o, W_o];
     ``row_ends``: ascending ends of each octave's rows within a frame's
     K / F rows (the rows are frame-major, each frame's octave segments
-    back to back); ``level`` indexes the frame's own L_o layers. Rows
-    that are not valid are zero; no count is read back. Plain version on
-    the CPU, kernel K3 on a CUDA device (which needs no ``radius``)."""
-    global launches_octaves
+    back to back); ``level`` indexes the frame's own L_o layers. A row
+    band's octave gives the global row of its stack's row 0
+    (``y_offsets``) and inclusive global scan rows (``y_bounds``); see
+    the module docstring. Rows that are not valid are zero; no count is
+    read back. Plain version on the CPU, kernel K3 on a CUDA device
+    (which needs no ``radius``)."""
+    global launches_octaves, launches_octaves_bounded
     _check_octaves(blurs, row_ends, x.shape[0], F)
     if blurs[0].device.type == "cpu":
         return orientation_hist_octaves_torch(blurs, row_ends, x, y, sigma,
-                                              level, valid, radius, F)
-    out = _launch(NAME_OCTAVES, list(blurs), [int(e) for e in row_ends], x,
-                  y, sigma, level, valid, F)
-    launches_octaves += 1 if x.shape[0] else 0
+                                              level, valid, radius, F,
+                                              y_offsets, y_bounds)
+    bounded = y_offsets is not None or y_bounds is not None
+    out = _launch(NAME_OCTAVES_BOUNDED if bounded else NAME_OCTAVES,
+                  list(blurs), [int(e) for e in row_ends], x, y, sigma,
+                  level, valid, F,
+                  specs=row_specs(NAME_OCTAVES, blurs, y_offsets, y_bounds))
+    if bounded:
+        launches_octaves_bounded += 1 if x.shape[0] else 0
+    else:
+        launches_octaves += 1 if x.shape[0] else 0
     return out
 
 

@@ -22,6 +22,15 @@ the compaction kernel writes them (ops/kernels/compact.py; frame-major,
 frame f's octave o at rows f * Ktot + offs[o] .. + cap[o]), each row's
 live count read from ``n_found[f, o]`` on the device. The per-octave and
 batched entries stay beside it, off every extraction path.
+
+Row bounds: on a spatially sharded row band (``parallel/spatial.py``)
+each octave of :func:`refine_state_octaves` also takes the global row of
+its stack's local row 0 and the octave's global height
+(``y_offsets``, ``heights``), and the step policy tests rows in global
+coordinates (popsift_tpu/ops/extrema.py:705-708) while every read stays
+in the band. Such a call counts in ``launches_octaves_bounded``
+(``refine_octaves_bounded``); without bounds it is today's launch, bit
+for bit.
 """
 
 from __future__ import annotations
@@ -40,12 +49,15 @@ NAME_BATCHED = "refine_batched"
 REPLACES_BATCHED = "popsift_tpu/ops/pallas/refine.py:380"
 NAME_OCTAVES = "refine_octaves"
 REPLACES_OCTAVES = REPLACES
+NAME_OCTAVES_BOUNDED = "refine_octaves_bounded"
+REPLACES_OCTAVES_BOUNDED = REPLACES
 MAX_OCTAVES = 16      # MAX_OCT of csrc/refine.cu
 MAX_ITERATIONS = 5    # s_extrema.cu:363
 NOUT = 16
 launches = 0
 launches_batched = 0
 launches_octaves = 0
+launches_octaves_bounded = 0
 
 
 def solve3(a00, a01, a02, a11, a12, a22, b0, b1, b2):
@@ -71,12 +83,14 @@ def solve3(a00, a01, a02, a11, a12, a22, b0, b1, b2):
 
 
 def refine_loop(neighbourhood, nx, ny, nz, W, H, *, maxlevel: int,
-                vlfeat: bool):
+                vlfeat: bool, y_off=0):
     """The 5-step refinement of popsift_tpu.ops.extrema.refine_candidates
     (:652-728) on n candidates starting at (nx, ny, nz) i64[n], up to its
     13 state columns. ``neighbourhood(nz, ny, nx)`` returns the f32
     [n, 3, 3, 3] values dog[nz+a-1, ny+b-1, nx+c-1] around the current
-    positions; ``W``/``H`` are ints or per-row i64 tensors. One body for
+    positions; ``W``/``H`` are ints or per-row i64 tensors. Rows are
+    tested in global coordinates: local row ny is global ny + ``y_off``
+    (an int or per-row tensor) of an octave ``H`` rows high. One body for
     every reader of the DoG (the dense stack, pre-cut windows), so they
     round alike. Returns the 13 columns as a tuple."""
     n = nx.shape[0]
@@ -121,8 +135,8 @@ def refine_loop(neighbourhood, nx, ny, nz, W, H, *, maxlevel: int,
         # step policy (popsift s_extrema.cu:258-284; vlfeat :207-232)
         tx = ((sx >= 0.6) & (nx < W - 2)).long() \
             - ((sx <= -0.6) & (nx > 1)).long()
-        ty = ((sy >= 0.6) & (ny < H - 2)).long() \
-            - ((sy <= -0.6) & (ny > 1)).long()
+        ty = ((sy >= 0.6) & (ny + y_off < H - 2)).long() \
+            - ((sy <= -0.6) & (ny + y_off > 1)).long()
         if vlfeat:
             tz = torch.zeros_like(tx)
         else:
@@ -141,12 +155,15 @@ def refine_loop(neighbourhood, nx, ny, nz, W, H, *, maxlevel: int,
 
 def refine_state_torch(dog: torch.Tensor, x0: torch.Tensor,
                        y0: torch.Tensor, z0: torch.Tensor, n: int, *,
-                       maxlevel: int, vlfeat: bool) -> torch.Tensor:
+                       maxlevel: int, vlfeat: bool, y_off: int = 0,
+                       height: int | None = None) -> torch.Tensor:
     """Plain version: popsift_tpu.ops.extrema.refine_candidates (:604-731)
     up to the 13-column state, on rows [0, n). Neighbour reads clamp z
     to [0, D-1] as ``neighborhood`` does (:630); x and y are clamped to
     the image, which is the JAX twin's edge-padded window (the step
-    policy keeps every read inside it anyway)."""
+    policy keeps every read inside it anyway). A row band passes the
+    global row of its row 0 (``y_off``) and the octave's global
+    ``height``; the default is the stack itself."""
     D, H, W = dog.shape
     K = x0.shape[0]
     out = torch.zeros((K, NOUT), dtype=torch.float32, device=dog.device)
@@ -164,7 +181,8 @@ def refine_state_torch(dog: torch.Tensor, x0: torch.Tensor,
         return flat[idx]
 
     cols = refine_loop(neighbourhood, x0[:n].long(), y0[:n].long(),
-                       z0[:n].long(), W, H, maxlevel=maxlevel, vlfeat=vlfeat)
+                       z0[:n].long(), W, H if height is None else height,
+                       maxlevel=maxlevel, vlfeat=vlfeat, y_off=y_off)
     out[:n, :len(cols)] = torch.stack(cols, dim=1)
     return out
 
@@ -267,14 +285,31 @@ def _check_octaves(dogs, x0, caps, n_found, F: int) -> None:
                              "stacks")
 
 
+def _row_bounds(dogs, y_offsets, heights) -> list:
+    """Per octave (global row of local row 0, global height): the given
+    ones, or (0, H) of each stack."""
+    if y_offsets is None and heights is None:
+        return [(0, d.shape[1]) for d in dogs]
+    if (y_offsets is None or heights is None or len(y_offsets) != len(dogs)
+            or len(heights) != len(dogs)):
+        raise ValueError("refine_state_octaves: one y offset and one height "
+                         "an octave")
+    out = [(int(y), int(h)) for y, h in zip(y_offsets, heights)]
+    if any(abs(y) > 1 << 30 or not 1 <= h <= 1 << 30 for y, h in out):
+        raise ValueError(f"refine_state_octaves: row bounds {out}")
+    return out
+
+
 def refine_state_octaves_torch(dogs, x0: torch.Tensor, y0: torch.Tensor,
                                z0: torch.Tensor, n_found: torch.Tensor,
                                caps, F: int = 1, *, maxlevel: int,
-                               vlfeat: bool) -> torch.Tensor:
+                               vlfeat: bool, y_offsets=None,
+                               heights=None) -> torch.Tensor:
     """Plain version of :func:`refine_state_octaves`:
     :func:`refine_state_torch` on each frame's octave rows and its own D
     layers, in the kernel's row order."""
     _check_octaves(dogs, x0, caps, n_found, F)
+    bounds = _row_bounds(dogs, y_offsets, heights)
     nf = n_found.tolist()
     offs = np.concatenate([[0], np.cumsum(caps)]).astype(int)
     out = []
@@ -285,25 +320,32 @@ def refine_state_octaves_torch(dogs, x0: torch.Tensor, y0: torch.Tensor,
                          f * int(offs[-1]) + int(offs[o + 1]))
             out.append(refine_state_torch(
                 dog[f * D:(f + 1) * D], x0[rows], y0[rows], z0[rows],
-                int(nf[f][o]), maxlevel=maxlevel, vlfeat=vlfeat))
+                int(nf[f][o]), maxlevel=maxlevel, vlfeat=vlfeat,
+                y_off=bounds[o][0], height=bounds[o][1]))
     return torch.cat(out)
 
 
 def refine_state_octaves(dogs, x0: torch.Tensor, y0: torch.Tensor,
                          z0: torch.Tensor, n_found: torch.Tensor, caps,
-                         F: int = 1, *, maxlevel: int,
-                         vlfeat: bool) -> torch.Tensor:
+                         F: int = 1, *, maxlevel: int, vlfeat: bool,
+                         y_offsets=None, heights=None) -> torch.Tensor:
     """f32[F*Ktot, 16] refinement state of the candidate rows of all
     octaves of F frames (``dogs``: per octave the frames' stacks back to
     back, f32[F*D_o, H_o, W_o]; ``x0``, ``y0``, ``z0`` i32[F*Ktot]
     frame-major with frame-local z; octave o's rows below ``n_found[f,
-    o]`` live, the rest zeros). Plain version on the CPU, ONE launch of
-    kernel K2 on a CUDA device, with no count read back."""
-    global launches_octaves
+    o]`` live, the rest zeros). ``y_offsets`` and ``heights`` (one int
+    an octave, both or neither) make octave o's stack a row band whose
+    row 0 is global row ``y_offsets[o]`` of an octave ``heights[o]`` rows
+    high. Plain version on the CPU, ONE launch of kernel K2 on a CUDA
+    device, with no count read back."""
+    global launches_octaves, launches_octaves_bounded
     _check_octaves(dogs, x0, caps, n_found, F)
+    bounds = _row_bounds(dogs, y_offsets, heights)
     if x0.device.type == "cpu":
         return refine_state_octaves_torch(dogs, x0, y0, z0, n_found, caps,
-                                          F, maxlevel=maxlevel, vlfeat=vlfeat)
+                                          F, maxlevel=maxlevel, vlfeat=vlfeat,
+                                          y_offsets=y_offsets,
+                                          heights=heights)
     x0, y0, z0 = (t.to(torch.int32).contiguous() for t in (x0, y0, z0))
     n_found = n_found.to(torch.int64).contiguous()
     build.require_cuda(NAME_OCTAVES, *dogs, x0, y0, z0, n_found)
@@ -311,13 +353,17 @@ def refine_state_octaves(dogs, x0: torch.Tensor, y0: torch.Tensor,
                       device=x0.device)
     ends = np.cumsum(caps)
     table = np.asarray([[d.data_ptr(), d.shape[0] // F, d.shape[1],
-                         d.shape[2], e] for d, e in zip(dogs, ends)],
-                       np.int64)
+                         d.shape[2], e, *b]
+                        for d, e, b in zip(dogs, ends, bounds)], np.int64)
+    bounded = y_offsets is not None
     lib = build.load_library()
     build.launch(
-        NAME_OCTAVES, x0, lib.ps_refine_octaves,
-        table.ctypes.data_as(ctypes.c_void_p), len(dogs), F, x0.data_ptr(),
-        y0.data_ptr(), z0.data_ptr(), n_found.data_ptr(), maxlevel,
-        int(vlfeat), out.data_ptr())
-    launches_octaves += 1
+        NAME_OCTAVES_BOUNDED if bounded else NAME_OCTAVES, x0,
+        lib.ps_refine_octaves, table.ctypes.data_as(ctypes.c_void_p),
+        len(dogs), F, x0.data_ptr(), y0.data_ptr(), z0.data_ptr(),
+        n_found.data_ptr(), maxlevel, int(vlfeat), out.data_ptr())
+    if bounded:
+        launches_octaves_bounded += 1
+    else:
+        launches_octaves += 1
     return out

@@ -51,17 +51,19 @@ def orientation_histograms(blur: torch.Tensor, ext: OctaveExtrema,
 
 def orientation_histograms_octaves(blurs, ext: OctaveExtrema,
                                    cfg: SiftConfig, row_ends, F: int = 1,
-                                   plain: bool = False) -> torch.Tensor:
+                                   plain: bool = False, y_offsets=None,
+                                   y_bounds=None) -> torch.Tensor:
     """Raw f32[K, 36] histograms of the keypoint rows of all octaves of F
     frames in one launch of kernel K3 (or its plain version with
     ``plain``). ``blurs``: per octave the frames' blur stacks back to
     back on the layer axis; the rows of ``ext`` are frame-major, each
     frame's octave o ending at row ``row_ends[o]`` of the frame, and
     ``ext.level`` indexes the frame's own layers. Rows that are not
-    valid are zero."""
+    valid are zero. A row band passes its octaves' global row offsets
+    and scan rows (``y_offsets``, ``y_bounds``: K3's row bounds)."""
     fn = orientation_hist_octaves_torch if plain else orientation_hist_octaves
     return fn(blurs, row_ends, ext.x, ext.y, ext.sigma, ext.level, ext.valid,
-              max_ori_radius(cfg), F)
+              max_ori_radius(cfg), F, y_offsets=y_offsets, y_bounds=y_bounds)
 
 
 def smooth_histograms(hist: torch.Tensor, smoothing: str = "vlfeat"

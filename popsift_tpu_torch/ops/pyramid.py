@@ -46,7 +46,14 @@ the decimation) is plain torch, as it was XLA in JAX.
 
 :func:`build_pyramid_frames` builds F same-sized frames at once, each
 octave as f32[F, L, H, W] and f32[F, L-1, H, W]; :func:`build_pyramid`
-is its one-frame form.
+is its one-frame form; :func:`build_pyramid_from` builds the octaves from
+a given one on, from that octave's level 0.
+
+Row bands (``parallel/spatial.py``): :func:`_octave0_level0` builds the
+octave-0 level of a band of input rows when it is given the rows above
+and below from the neighbouring bands (``pad_rows``, a halo exchange) in
+place of edge replication; the band's rows then equal the whole frame's
+bit for bit.
 """
 
 from __future__ import annotations
@@ -173,6 +180,11 @@ def _conv1d_asym(x: torch.Tensor, taps: np.ndarray, qmin: int, pad: int,
     return out
 
 
+def _pad_edge_rows(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Edge-replicate ``pad`` rows above and below ``x`` [..., H, W]."""
+    return _pad_edge(x, pad, -2)
+
+
 def _plan_tensor(plan: PyramidPlan, name: str, dev: torch.device,
                  make) -> torch.Tensor:
     """The plan's constant tensor ``name`` on ``dev``, from the numpy
@@ -208,15 +220,15 @@ def _lerp_rows(img: torch.Tensor, pos: np.ndarray, dim: int,
 
 
 def _resample_filter(img: torch.Tensor, plan: PyramidPlan, oh: int, ow: int,
-                     kx: np.ndarray, ky: np.ndarray, name: str
-                     ) -> torch.Tensor:
+                     kx: np.ndarray, ky: np.ndarray, name: str,
+                     pad_rows=_pad_edge_rows) -> torch.Tensor:
     """The generic octave-level build from the input
     (popsift_tpu.ops.pyramid._octave0_level0's non-polyphase branch and
     _octave_lvl0_from_input): rows resampled at (y + shift) * (src/dst)
     - 0.5, columns at the same positions over an extended range, a
-    valid horizontal pass with ``kx`` (x 255), then edge-replicated rows
-    and a valid vertical pass with ``ky``."""
-    sh, sw = plan.in_h, plan.in_w
+    valid horizontal pass with ``kx`` (x 255), then ``pad_rows`` (edge
+    replication) and a valid vertical pass with ``ky``."""
+    sh, sw = img.shape[-2:]
     src = _input_as_float(img)
     pad = (kx.shape[0] - 1) // 2
     ys = (np.arange(oh, dtype=np.float64) + plan.shift0) * (sh / oh) - 0.5
@@ -226,30 +238,43 @@ def _resample_filter(img: torch.Tensor, plan: PyramidPlan, oh: int, ow: int,
     r = _lerp_rows(r, xs, -1, plan, f"{name}.cols")         # [oh, ow + 2pad]
     out = _conv1d_valid(r, kx, -1) * 255.0
     pady = (ky.shape[0] - 1) // 2
-    return _conv1d_valid(_pad_edge(out, pady, -2), ky, -2)
+    return _conv1d_valid(pad_rows(out, pady), ky, -2)
+
+
+def polyphase0(plan: PyramidPlan) -> bool:
+    """Whether octave 0 is the default 2x upscale with shift 1, built by
+    the polyphase form."""
+    oh, ow = plan.dims[0]
+    return oh == 2 * plan.in_h and ow == 2 * plan.in_w and plan.shift0 == 1.0
 
 
 def _octave0_level0(img: torch.Tensor, plan: PyramidPlan,
                     kx: np.ndarray | None = None,
-                    ky: np.ndarray | None = None) -> torch.Tensor:
+                    ky: np.ndarray | None = None,
+                    pad_rows=_pad_edge_rows) -> torch.Tensor:
     """An octave-0 level from the input, ``kx`` horizontally (default
     dd[0]) and ``ky`` vertically (default inc[0]); the fixed modes give
     ``abs_o0[level]`` for both. For the default 2x upscale with shift 1:
     four quarter-resolution phase planes convolved on the source image
     and interleaved into [2H, 2W]; otherwise the resampling of
-    :func:`_resample_filter`."""
+    :func:`_resample_filter`. ``pad_rows(x, pad)`` puts ``pad`` rows above
+    and below ``x`` before each vertical pass (edge replication); a row
+    band of the input passes the neighbouring bands' rows instead, and
+    gets the level's rows of the band (for the polyphase form and for
+    the identity grid of ``upscale_factor=0``, which map input rows to
+    level rows two to one and one to one)."""
     oh, ow = plan.dims[0]
     kx = plan.lvl0_kernel_x if kx is None else kx
     ky = plan.lvl0_kernel_y if ky is None else ky
-    if not (oh == 2 * plan.in_h and ow == 2 * plan.in_w
-            and plan.shift0 == 1.0):
-        return _resample_filter(img, plan, oh, ow, kx, ky, "o0")
+    if not polyphase0(plan):
+        return _resample_filter(img, plan, img.shape[-2] * oh // plan.in_h,
+                                ow, kx, ky, "o0", pad_rows)
     src = _input_as_float(img)
     kxp = _phase_kernels(kx * 255.0)
     kyp = _phase_kernels(ky)
     px_pad = max(max(abs(q), abs(q + t.shape[0] - 1)) for t, q in kxp)
     py_pad = max(max(abs(q), abs(q + t.shape[0] - 1)) for t, q in kyp)
-    srcp = _pad_edge(_pad_edge(src, py_pad, 0), px_pad, 1)
+    srcp = _pad_edge(pad_rows(src, py_pad), px_pad, 1)
     rows = []
     for ky_t, ky_q in kyp:
         row = []
@@ -258,7 +283,7 @@ def _octave0_level0(img: torch.Tensor, plan: PyramidPlan,
             row.append(_conv1d_asym(p, ky_t, ky_q, py_pad, 0))
         rows.append(torch.stack(row, dim=-1))          # [H, W, px]
     out = torch.stack(rows, dim=1)                     # [H, py, W, px]
-    return out.reshape(oh, ow)
+    return out.reshape(2 * src.shape[0], ow)
 
 
 def _octave_lvl0_from_input(img: torch.Tensor, plan: PyramidPlan,
@@ -320,28 +345,60 @@ def build_pyramid_frames(imgs: torch.Tensor, plan: PyramidPlan,
     launch (their plain versions with ``plain``); the modes that blur
     from level 0 run K5 per level on both fronts, as the JAX package runs
     no chain for them."""
+    blurs, dogs = _octave_stacks(plan, imgs.shape[0], 0, imgs.device)
+    _blur_octaves(blurs, dogs, plan, 0, plain, front, imgs)
+    return tuple(blurs), tuple(dogs)
+
+
+def build_pyramid_from(level0: torch.Tensor, plan: PyramidPlan, first: int,
+                       plain: bool = False, front: str = "level"):
+    """Octaves ``first`` .. of F frames, as :func:`build_pyramid_frames`
+    builds them, from level 0 of octave ``first``, ``level0`` f32[F, H, W]
+    (a scaling strategy that makes each octave from the one before).
+    Returns (blurs, dogs) over those octaves."""
+    blurs, dogs = _octave_stacks(plan, level0.shape[0], first, level0.device)
+    blurs[0][:, 0] = level0
+    _blur_octaves(blurs, dogs, plan, first, plain, front, None)
+    return tuple(blurs), tuple(dogs)
+
+
+def _octave_stacks(plan: PyramidPlan, F: int, first: int, dev) -> tuple:
+    """Empty f32[F, L, H, W] blur and f32[F, L-1, H, W] DoG stacks of the
+    octaves ``first`` .."""
+    total = plan.config.total_levels
+    dims = plan.dims[first:]
+    return ([torch.empty((F, total, oh, ow), dtype=torch.float32, device=dev)
+             for oh, ow in dims],
+            [torch.empty((F, total - 1, oh, ow), dtype=torch.float32,
+                         device=dev) for oh, ow in dims])
+
+
+def _blur_octaves(blurs, dogs, plan: PyramidPlan, first: int, plain: bool,
+                  front: str, imgs) -> None:
+    """Fill the stacks of octaves ``first`` .. (``blurs[0]`` is octave
+    ``first``): level 0 of each from the input ``imgs`` or the octave
+    before, except octave ``first`` > 0, whose level 0 is given; then the
+    levels and DoG layers (see :func:`build_pyramid_frames`)."""
     cfg = plan.config
     if front not in FRONTS:
         raise ValueError(f"front must be one of {FRONTS}, got {front!r}")
     blur_level = blur_dog_torch if plain else blur_dog
     chain = blur_chain_torch if plain else partial(blur_chain,
                                                    group=CHAIN_GROUP)
-    F = imgs.shape[0]
+    F = blurs[0].shape[0]
     total = cfg.total_levels
-    dev = imgs.device
-    blurs = [torch.empty((F, total, oh, ow), dtype=torch.float32, device=dev)
-             for oh, ow in plan.dims]
-    dogs = [torch.empty((F, total - 1, oh, ow), dtype=torch.float32,
-                        device=dev) for oh, ow in plan.dims]
     src_lvl = total - 3     # the level the next octave is made from
-    n_oct = len(blurs)
+    n_oct = len(plan.dims)
     fixed = cfg.gauss_mode in ("fixed9", "fixed15")
     from_level0 = cfg.gauss_mode in FROM_LEVEL0
     picks = cfg.scaling_mode == "indirect" and cfg.downscale_mode == "pick"
-    first_thin = first_thin_octave(plan)
-    for octv, (levels, dog) in enumerate(zip(blurs, dogs)):
+    first_thin = max(first_thin_octave(plan), first)
+    for octv in range(first, n_oct):
+        levels, dog = blurs[octv - first], dogs[octv - first]
         oh, ow = plan.dims[octv]
-        if octv == 0 and fixed:
+        if octv == first and first > 0:
+            pass                                 # level 0 given
+        elif octv == 0 and fixed:
             # every octave-0 level from the input, abs_o0 on both axes
             for f in range(F):
                 for lvl in range(total):
@@ -355,10 +412,11 @@ def build_pyramid_frames(imgs: torch.Tensor, plan: PyramidPlan,
                 levels[f, 0] = _octave_lvl0_from_input(imgs[f], plan, octv)
         elif not picks:
             levels[:, 0] = _decimate2_interpolate(
-                blurs[octv - 1][:, src_lvl], oh, ow)
+                blurs[octv - first - 1][:, src_lvl], oh, ow)
         if octv >= first_thin:
             break
-        nxt = blurs[octv + 1][:, 0] if picks and octv + 1 < n_oct else None
+        nxt = (blurs[octv - first + 1][:, 0] if picks and octv + 1 < n_oct
+               else None)
         picked = False       # whether a K5 or K7 launch wrote nxt
         if octv == 0 and fixed:
             torch.sub(levels[:, 1:], levels[:, :-1], out=dog)
@@ -386,9 +444,8 @@ def build_pyramid_frames(imgs: torch.Tensor, plan: PyramidPlan,
                                         *nxt.shape[-2:]))
     if first_thin < n_oct:
         thin = blur_dog_thin_torch if plain else blur_dog_thin
-        thin(blurs[first_thin:], dogs[first_thin:],
+        thin(blurs[first_thin - first:], dogs[first_thin - first:],
              list(plan.inc_kernels[1:]), src_lvl)
-    return tuple(blurs), tuple(dogs)
 
 
 def build_pyramid(img: torch.Tensor, plan: PyramidPlan,

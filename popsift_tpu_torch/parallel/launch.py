@@ -8,8 +8,12 @@ clash with another job on the host), sets each rank's device and calls
 ``fn(device, *args)`` on every rank after
 :func:`popsift_tpu_torch.utils.device.init_distributed`. ``fn`` must be a
 function of an importable module (a child imports it to unpickle it)
-and return something picklable. A rank that raises, or a job that
-outlives ``timeout``, kills every rank and raises in the caller.
+and return something picklable. ``fn`` and ``args`` reach the ranks
+through a file in that directory, not through the pipe of each child's
+start: a start blocks until its child has read what does not fit the
+pipe, and a child reads only after its imports, so large arguments
+would start the ranks one after another. A rank that raises, or a job
+that outlives ``timeout``, kills every rank and raises in the caller.
 
 Devices: ``"cpu"`` (every rank on the CPU, with one thread each, so that
 several jobs on one machine do not oversubscribe its cores), ``"cuda"``
@@ -37,8 +41,10 @@ def rank_device(device: str, rank: int) -> torch.device:
 
 
 def _rank_main(rank: int, world: int, backend: str, device: str,
-               store: str, out_dir: str, fn, args):
+               store: str, out_dir: str):
     import torch.distributed as dist
+    with open(os.path.join(out_dir, "call.pkl"), "rb") as fh:
+        fn, args = pickle.load(fh)
     dev = rank_device(device, rank)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
@@ -65,9 +71,11 @@ def spawn(fn, world_size: int, backend: str, device: str = "cuda",
     import torch.multiprocessing as mp
     with tempfile.TemporaryDirectory(prefix="popsift_ranks_") as tmp:
         store = "file://" + os.path.join(tmp, "store")
+        with open(os.path.join(tmp, "call.pkl"), "wb") as fh:
+            pickle.dump((fn, tuple(args)), fh)
         ctx = mp.start_processes(
             _rank_main, nprocs=world_size, join=False, start_method="spawn",
-            args=(world_size, backend, device, store, tmp, fn, tuple(args)))
+            args=(world_size, backend, device, store, tmp))
         deadline = time.monotonic() + timeout
         try:
             while not ctx.join(timeout=0.2):

@@ -9,20 +9,24 @@ mesh over them, and
 
 1. data-parallel batched extraction (one 48 x 64 frame a rank) with the
    ring descriptor matching (``ppermute``);
+2. the spatially sharded pyramid (32 rows a rank, halo exchange by
+   ``ppermute``), and 2b. the spatially sharded extraction of a frame of
+   56 rows a rank (``parallel/spatial.py``), its keypoint count held to
+   the single-device ``extract`` at the effective capacities;
 3. one distributed Schur-complement bundle-adjustment step with ``psum``
    camera reductions (landmark-sharded observations);
+4. DP x SP extraction on a 2-D mesh (frames over "dp", rows over "sp",
+   two ranks a frame), with at least 4 ranks;
 5. all-pairs systolic-ring descriptor matching;
 6. edge-sharded rotation averaging (one ``psum`` of the Laplacian normal
    equations per IRLS round);
 7. edge-sharded matrix-free translation averaging (a ``psum`` per CG
    iteration).
 
-Items 2, 2b and 4 of the JAX dryrun (the spatially sharded pyramid and
-extraction, and DP x SP on a 2-D mesh) need ``parallel/spatial.py``,
-which is not yet ported; the report says so. ``--device cuda`` puts rank
-r on ``cuda:r`` and runs on NCCL by default; ranks that share one GPU
-(``--device cuda:0``) or run on the CPU need ``--backend gloo``. Exits
-non-zero when a rank fails or a check does not hold.
+``--device cuda`` puts rank r on ``cuda:r`` and runs on NCCL by
+default; ranks that share one GPU (``--device cuda:0``) or run on the
+CPU need ``--backend gloo``. Exits non-zero when a rank fails or a check
+does not hold.
 """
 
 from __future__ import annotations
@@ -32,10 +36,6 @@ import sys
 
 import numpy as np
 import torch
-
-NOT_PORTED = ("2. spatially sharded pyramid", "2b. sharded extraction",
-              "4. DP x SP extraction")
-
 
 def _demo_image(h, w, seed=0):
     """``__graft_entry__.py::_demo_image``."""
@@ -52,11 +52,18 @@ def _demo_image(h, w, seed=0):
 
 
 def dryrun_rank(device) -> dict:
-    """Items 1, 3, 5, 6 and 7 on this rank; returns its readings."""
+    """Items 1-7 on this rank; returns its readings."""
     from popsift_tpu_torch.config import SiftConfig
-    from popsift_tpu_torch.parallel.batch import (make_allpairs_match_fn,
+    from popsift_tpu_torch.parallel.batch import (gather_features,
+                                                  make_allpairs_match_fn,
                                                   make_batched_extract_fn)
-    from popsift_tpu_torch.parallel.mesh import axis_index, make_mesh, psum
+    from popsift_tpu_torch.parallel.mesh import (all_gather, axis_index,
+                                                 make_mesh, make_mesh_2d,
+                                                 psum)
+    from popsift_tpu_torch.parallel.spatial import (
+        make_batched_sharded_extract_fn, make_sharded_extract_fn,
+        make_sharded_pyramid_fn)
+    from popsift_tpu_torch.pipeline import build_extract_plan, extract
     from popsift_tpu_torch.sfm import ba as B
     from popsift_tpu_torch.sfm import distributed as D
     from popsift_tpu_torch.sfm import global_sfm as G
@@ -72,6 +79,23 @@ def dryrun_rank(device) -> dict:
     fn = make_batched_extract_fn(cfg, h, w, mesh, match_pairs=True)
     out, match = fn(torch.from_numpy(_demo_image(h, w, seed=me)[None]))
     n_kp = int(reduce(out.n_keypoints.sum()))
+
+    # 2. spatial sharding: the halo-exchange pyramid
+    sp_mesh = make_mesh(device=device, axis_name="sp")
+    hs = 32 * n
+    sp_fn = make_sharded_pyramid_fn(cfg, hs, 64, sp_mesh)
+    img = _demo_image(hs, 64, seed=3).astype(np.float32)
+    blurs, _ = sp_fn(torch.from_numpy(img[me * 32:(me + 1) * 32]))
+    blurs = all_gather(blurs, sp_mesh, axis=1, tiled=True)
+
+    # 2b. the spatially sharded extraction, against extract
+    hse = 56 * n
+    cfg_sp = SiftConfig(octaves=3, extrema_capacity=128)
+    se_fn, eff = make_sharded_extract_fn(cfg_sp, hse, 96, sp_mesh)
+    frame = _demo_image(hse, 96, seed=5)
+    se_out = se_fn(torch.from_numpy(frame[me * 56:(me + 1) * 56]))
+    single = extract(frame, build_extract_plan(cfg_sp, hse, 96,
+                                               octave_caps=eff), device)
 
     # 3. distributed BA step
     rng = np.random.default_rng(0)
@@ -123,8 +147,26 @@ def dryrun_rank(device) -> dict:
     C_avg, _ = G.translation_averaging_cg(n_rot, a, b, d, iters=2,
                                           cg_iters=12, valid=v,
                                           reduce=reduce)
+
+    # 4. DP x SP: frames over dp, rows over sp (two ranks a frame)
+    dpsp_kp = -1
+    if n >= 4 and n % 2 == 0:
+        m2 = make_mesh_2d(n // 2, 2, names=("dp", "sp"), device=device)
+        cfg2 = SiftConfig(octaves=3, extrema_capacity=128)
+        fn2, _ = make_batched_sharded_extract_fn(cfg2, 112, 96, m2)
+        i, j = m2.coords["dp"], m2.coords["sp"]
+        fr = _demo_image(112, 96, seed=20 + i)[None, j * 56:(j + 1) * 56]
+        out2 = gather_features(fn2(torch.from_numpy(fr)), m2, "dp")
+        dpsp_kp = int(out2.n_keypoints.sum())
     return dict(n_keypoints=n_kp, matching=match is not None,
                 ring_rows=int(match.accept.shape[-1]),
+                pyramid=tuple(blurs.shape),
+                sharded_kp=int(se_out.n_keypoints),
+                sharded_equal=(int(se_out.n_keypoints)
+                               == int(single.n_keypoints)
+                               and int(se_out.n_descriptors)
+                               == int(single.n_descriptors)),
+                dpsp_kp=dpsp_kp,
                 allpairs=tuple(ap.accept.shape), ba_cost=float(costs[-1]),
                 rot_err=rot_err,
                 tr_finite=bool(torch.isfinite(C_avg).all()))
@@ -143,15 +185,20 @@ def main(argv=None) -> int:
     res = spawn(this.dryrun_rank, args.world_size, args.backend, args.device)
     r = res[0]
     same = all(x == r for x in res)
+    dpsp = (f"{r['dpsp_kp']} kp" if r["dpsp_kp"] >= 0
+            else "not run (needs 4 ranks)")
     print(f"dryrun_multichip: {args.world_size} ranks ({args.backend}, "
           f"{args.device}), {r['n_keypoints']} keypoints, matching "
-          f"ok={r['matching']} ({r['ring_rows']} rows a pair), all-pairs "
-          f"ring {r['allpairs']} a rank, distributed BA cost "
-          f"{r['ba_cost']:.3f}, distributed rotation averaging err "
+          f"ok={r['matching']} ({r['ring_rows']} rows a pair), spatial "
+          f"pyramid {r['pyramid']}, sharded extract {r['sharded_kp']} kp "
+          f"(equal to extract={r['sharded_equal']}), dp x sp extract "
+          f"{dpsp}, all-pairs ring {r['allpairs']} a rank, distributed BA "
+          f"cost {r['ba_cost']:.3f}, distributed rotation averaging err "
           f"{r['rot_err']:.2e}, distributed translation averaging "
-          f"finite={r['tr_finite']}, ranks agree={same}; not yet ported "
-          f"(parallel/spatial.py): {', '.join(NOT_PORTED)}", flush=True)
+          f"finite={r['tr_finite']}, ranks agree={same}", flush=True)
     ok = (same and r["tr_finite"] and r["matching"] and r["n_keypoints"] > 0
+          and r["sharded_equal"] and r["sharded_kp"] > 0
+          and (args.world_size < 4 or r["dpsp_kp"] > 0)
           and np.isfinite(r["ba_cost"]) and r["rot_err"] < 1e-3)
     return 0 if ok else 1
 

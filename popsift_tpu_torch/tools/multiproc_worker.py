@@ -9,14 +9,14 @@ the job through ``utils/device.py::init_distributed`` over
 process, and the workload runs the collectives the port relies on
 across the process boundary: batched extraction with ``psum`` (total
 keypoints), ``ppermute`` (the neighbour's descriptor sum) and
-``all_gather`` (every process's sum), then one distributed bundle
-adjustment step (``psum`` of the Schur reductions). Prints one line
-``RESULT <checksum>`` that must be identical on every process (its
+``all_gather`` (every process's sum), the spatially sharded extraction
+of one frame whose rows the processes split (its halo exchanges and
+feature gathers cross the process boundary), then one distributed
+bundle adjustment step (``psum`` of the Schur reductions). Prints one
+line ``RESULT <checksum>`` that must be identical on every process (its
 values are replicated by the collectives). ``--device cuda`` puts
 process p on ``cuda:p`` and uses NCCL by default; processes that share
-a GPU, or run on the CPU, need ``--backend gloo``. The spatially sharded
-extraction of the JAX worker needs ``parallel/spatial.py``, not yet
-ported.
+a GPU, or run on the CPU, need ``--backend gloo``.
 """
 
 from __future__ import annotations
@@ -58,6 +58,7 @@ def main(argv=None) -> int:
     from popsift_tpu_torch.parallel.launch import rank_device
     from popsift_tpu_torch.parallel.mesh import (all_gather, make_mesh,
                                                  ppermute, psum)
+    from popsift_tpu_torch.parallel.spatial import make_sharded_extract_fn
     from popsift_tpu_torch.sfm import ba as B
     from popsift_tpu_torch.sfm import distributed as D
     from popsift_tpu_torch.utils.device import init_distributed
@@ -80,6 +81,15 @@ def main(argv=None) -> int:
     nbr = ppermute(desc_sum, mesh, [(i, (i + 1) % n) for i in range(n)])
     allsums = all_gather(desc_sum, mesh)
 
+    # spatially sharded extraction across processes: each its rows
+    sp_mesh = make_mesh(device=dev, axis_name="sp")
+    hs, ws = 56 * n, 64              # band >= the keypoint halo
+    se_fn, _ = make_sharded_extract_fn(
+        SiftConfig(octaves=2, extrema_capacity=64), hs, ws, sp_mesh)
+    rows = hs // n
+    sp_out = se_fn(torch.from_numpy(
+        _frame(hs, ws, seed=7)[pid * rows:(pid + 1) * rows]))
+
     # one distributed BA step
     rng = np.random.default_rng(0)
     n_pts, n_cams, n_obs = 4 * n, 3, 8 * n
@@ -97,6 +107,7 @@ def main(argv=None) -> int:
         D.shard_of(part, mesh))
 
     checksum = (int(total_kp), round(float(allsums.sum()), 3),
+                int(sp_out.n_keypoints), round(float(sp_out.desc.sum()), 3),
                 round(float(costs[-1]), 4))
     print(f"neighbour descriptor sum {float(nbr):.3f}", flush=True)
     print(f"RESULT {checksum}", flush=True)

@@ -1,6 +1,7 @@
 """Rank bodies for ``parallel/launch.py::spawn``: what each rank of the
 multi-rank tests runs (``tests/test_torch_mesh.py``,
-``test_torch_parallel.py``, ``test_torch_sfm_distributed.py``).
+``test_torch_parallel.py``, ``test_torch_sfm_distributed.py``,
+``test_torch_spatial.py``).
 
 Each function is called as ``fn(device, *args)`` on every rank of a job,
 builds its mesh over the whole job and returns numpy arrays (picklable,
@@ -21,6 +22,9 @@ from ..config import SiftConfig
 from ..parallel import mesh as M
 from ..parallel.batch import (gather_features, make_allpairs_match_fn,
                               make_batched_extract_fn)
+from ..parallel.spatial import (make_batched_sharded_extract_fn,
+                                make_sharded_extract_fn,
+                                make_sharded_pyramid_fn)
 
 
 def as_numpy(tree):
@@ -202,3 +206,65 @@ def sfm_suite(device, cases: dict, step_fields: dict, graph: tuple,
     R_rel, d) in one job."""
     return {"ba": ba_cases(device, cases, step_fields),
             "avg": averaging(device, *graph, cg_kw)}
+
+
+def _raises(fn, *args) -> bool:
+    try:
+        fn(*args)
+    except ValueError:
+        return True
+    return False
+
+
+def sharded_pyramid(device, lvl0: np.ndarray, cfg_kw: dict):
+    """``make_sharded_pyramid_fn`` over the job's ranks ("sp") on this
+    rank's rows of ``lvl0`` [H, W], the bands gathered along the rows;
+    and whether a height that does not divide by the ranks, and one whose
+    band is thinner than the blur halo, raise ValueError."""
+    mesh = M.make_mesh(device=device, axis_name="sp")
+    cfg = SiftConfig(**cfg_kw)
+    H, W = lvl0.shape
+    n, me = M.axis_size(mesh), M.axis_index(mesh)
+    fn = make_sharded_pyramid_fn(cfg, H, W, mesh)
+    blurs, dogs = fn(torch.from_numpy(_block(lvl0, mesh)))
+    return as_numpy(dict(
+        blurs=M.all_gather(blurs, mesh, axis=1, tiled=True),
+        dogs=M.all_gather(dogs, mesh, axis=1, tiled=True),
+        rejects_height=_raises(make_sharded_pyramid_fn, cfg, 8 * n - 1, W,
+                               mesh),
+        rejects_band=_raises(make_sharded_pyramid_fn, cfg, 8 * n, W, mesh),
+        me=me, n=n))
+
+
+def sharded_extract(device, frame: np.ndarray, frames: np.ndarray,
+                    cfg_kw: dict):
+    """On a job of 4 ranks: ``make_sharded_extract_fn`` over all of them
+    ("sp") of ``frame`` [H, W] (each rank its rows), and DP x SP
+    (``make_batched_sharded_extract_fn`` on ``make_mesh_2d(2, 2)``) of
+    the two ``frames`` [2, H, W], gathered over "dp", beside each dp
+    group's frame alone through ``make_sharded_extract_fn`` on the "sp"
+    axis of the same mesh; the effective capacities, the traffic of the
+    1-D run, and whether the unsupported configurations raise
+    ValueError."""
+    mesh = M.make_mesh(device=device, axis_name="sp")
+    cfg = SiftConfig(**cfg_kw)
+    H, W = frame.shape
+    fn, eff = make_sharded_extract_fn(cfg, H, W, mesh)
+    feats = fn(torch.from_numpy(_block(frame, mesh)))
+    m2 = M.make_mesh_2d(2, 2, names=("dp", "sp"), device=device)
+    fn2, eff2 = make_batched_sharded_extract_fn(cfg, H, W, m2)
+    dp, sp = m2.coords["dp"], m2.coords["sp"]
+    hb = H // 2
+    bands = torch.from_numpy(frames[dp:dp + 1, sp * hb:(sp + 1) * hb])
+    alone = make_sharded_extract_fn(cfg, H, W, m2, axis_name="sp")[0](
+        bands[0])
+    return as_numpy(dict(
+        feats=feats, eff=eff, traffic=dict(fn.traffic),
+        batch=gather_features(fn2(bands), m2, "dp"), eff2=eff2,
+        alone=gather_features(type(alone)(*(f[None] for f in alone)), m2,
+                              "dp"),
+        rejects_direct=_raises(make_sharded_extract_fn,
+                               SiftConfig(scaling_mode="direct"), H, W,
+                               mesh),
+        rejects_height=_raises(make_sharded_extract_fn, SiftConfig(),
+                               H + 1, W, mesh)))

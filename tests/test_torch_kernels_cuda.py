@@ -16,6 +16,10 @@ single-octave launches bit for bit, and two runs of K3 and K4 give the
 same bits. The compaction equals its plain version entry for entry and
 K2's all-octave launch equals its plain version bit for bit, and an
 extraction of an uploaded frame runs with no stream synchronisation.
+The all-octave launches of K2, K3 and K4 with the row bounds of a band
+(``parallel/spatial.py``) against their plain versions by the same
+tolerances, counted on their own; with whole-frame bounds bit-equal to
+the unbounded launch.
 """
 
 import math
@@ -543,6 +547,23 @@ def test_compact_kernel(dev, F, case):
         assert int(got[4].sum()) > 0          # the clamp dropped some
 
 
+@pytest.mark.parametrize("shape,cap", [((3, 600, 640), 4096),
+                                       ((3, 540, 960), 8192)])
+def test_compact_kernel_index_scratch_sizes(dev, shape, cap):
+    """Capacities whose indices take 32 KB of dynamic shared memory (two
+    levels of 4096, one of 8192): with the select's 16 KB of static
+    shared memory the block passes the 48 KB default, which a launch must
+    opt out of (a spatially sharded band's capacity is half the
+    octave's)."""
+    rng = np.random.default_rng(cap)
+    masks = [torch.from_numpy(rng.random((1, *shape)) < 0.002).to(dev)]
+    got = compact.compact_octaves(masks, (cap,))
+    want = compact.compact_octaves_torch(masks, (cap,))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(got[3][0, 0]) > 0
+
+
 @pytest.mark.parametrize("F", [1, 4])
 @pytest.mark.parametrize("vlfeat", [False, True])
 def test_refine_octaves_kernel(dev, F, vlfeat):
@@ -611,3 +632,85 @@ def test_kernels_launch_on_their_tensors_device():
     for a, b in zip(got, want):
         assert a.device == d1
         assert torch.equal(a.cpu(), b.cpu())
+
+
+def _band(stack, r0, hb, halo):
+    """Rows [r0 - halo, r0 + hb + halo) of a stack, edge rows replicated
+    past it (what the halo exchange gives a band)."""
+    rows = torch.arange(r0 - halo, r0 + hb + halo,
+                        device=stack.device).clamp(0, stack.shape[1] - 1)
+    return stack[:, rows].contiguous()
+
+
+@pytest.mark.parametrize("band", [0, 1, 3])
+def test_refine_octaves_bounded_kernel(dev, band):
+    """K2 on a DoG band of 64 rows with a halo of 6 (the band's own rows
+    detected), the band's global row offset and the octave's height,
+    against its plain version; whole-frame bounds equal the unbounded
+    launch."""
+    cfg = SiftConfig()
+    dog = _dog(dev, H=256, W=131, seed=4)
+    hb, hd = 64, 6
+    dband = _band(dog, band * hb, hb, hd)
+    masks = extrema.band_masks(extrema.candidate_masks([dband], cfg),
+                               [(hd, hd + hb)])
+    rows = extrema.compact_octaves(masks, cfg, (512,))
+    assert int(rows.n_found.min()) > 0
+    kw = dict(maxlevel=5, vlfeat=False, y_offsets=[band * hb - hd],
+              heights=[256])
+    args = ([dband], rows.x0, rows.y0, rows.z0, rows.n_found, (512,))
+    b0, b1 = refine.launches_octaves_bounded, refine.launches_octaves
+    got = refine.refine_state_octaves(*args, **kw)
+    assert (refine.launches_octaves_bounded,
+            refine.launches_octaves) == (b0 + 1, b1)
+    assert torch.equal(got, refine.refine_state_octaves_torch(*args, **kw))
+    rows = extrema.compact_octaves(extrema.candidate_masks([dog], cfg), cfg,
+                                   (2048,))
+    args = ([dog], rows.x0, rows.y0, rows.z0, rows.n_found, (2048,))
+    kw = dict(maxlevel=5, vlfeat=False)
+    assert torch.equal(refine.refine_state_octaves(*args, **kw),
+                       refine.refine_state_octaves(
+                           *args, **kw, y_offsets=[0], heights=[256]))
+
+
+@pytest.mark.parametrize("band", [0, 1, 3])
+def test_orientation_and_descriptor_bounded_kernels(dev, band):
+    """K3 and K4 on a blur band of 70 rows with a halo of 52, keypoints in
+    global rows with the band's offset and the frame's scan rows, against
+    their plain versions and against the whole frame's unbounded
+    launches (rows within 1e-5 x the row's max); whole-frame bounds equal
+    the unbounded launch bit for bit."""
+    L, H, W, hb, hk, n = 6, 280, 170, 70, 52, 64
+    blur = torch.rand((L, H, W), device=dev) * 255
+    x, y, s, lv, ang, valid = _keypoints(dev, L, hb + 10, W, n,
+                                         seed=40 + band)
+    y = (y + band * hb - 5).clamp(0, H - 1)
+    s = s.clamp(max=4.0)      # K4's support (at most 46 rows) in the halo
+    bband = _band(blur, band * hb, hb, hk)
+    off = dict(y_offsets=[band * hb - hk], y_bounds=[(1, H - 2)])
+    b0, b1 = orient.launches_octaves_bounded, orient.launches_octaves
+    got = orient.orientation_hist_octaves([bband], [n], x, y, s, lv, valid,
+                                          23, **off)
+    assert (orient.launches_octaves_bounded,
+            orient.launches_octaves) == (b0 + 1, b1)
+    assert _rel_rows(got, orient.orientation_hist_octaves_torch(
+        [bband], [n], x, y, s, lv, valid, 23, **off))
+    whole = orient.orientation_hist_octaves([blur], [n], x, y, s, lv, valid,
+                                            23)
+    assert _rel_rows(got, whole) and whole.abs().sum() > 0
+    assert torch.equal(whole, orient.orientation_hist_octaves(
+        [blur], [n], x, y, s, lv, valid, 23, y_offsets=[0],
+        y_bounds=[(1, H - 2)]))
+    b0, b1 = desc.launches_octaves_bounded, desc.launches_octaves
+    got = desc.descriptor_loop_octaves([bband], [n], x, y, s, lv, ang, valid,
+                                       51, **off)
+    assert (desc.launches_octaves_bounded,
+            desc.launches_octaves) == (b0 + 1, b1)
+    assert _rel_rows(got, desc.descriptor_loop_octaves_torch(
+        [bband], [n], x, y, s, lv, ang, valid, 51, **off))
+    whole = desc.descriptor_loop_octaves([blur], [n], x, y, s, lv, ang,
+                                         valid, 51)
+    assert _rel_rows(got, whole) and whole.abs().sum() > 0
+    assert torch.equal(whole, desc.descriptor_loop_octaves(
+        [blur], [n], x, y, s, lv, ang, valid, 51, y_offsets=[0],
+        y_bounds=[(1, H - 2)]))

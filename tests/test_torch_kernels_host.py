@@ -308,7 +308,7 @@ def test_descriptor_source_over_octaves(desc_lib):
         sets.append((blur, job))
         singles.append(_single(desc_lib, blur, *job, 51))
         end += n
-        table.append([blur.data_ptr(), L, H, W, end])
+        table.append([blur.data_ptr(), L, H, W, end, 0, 1, H - 2])
     table = np.asarray(table, np.int64)
     cat = [torch.cat([j[i] for _, j in sets]).contiguous() for i in range(6)]
     v8 = cat[5].to(torch.uint8)
@@ -424,8 +424,9 @@ def _keypoint_rows(rng, L, H, W, n, p_valid=0.8):
 
 def _hists(lib, blurs, row_ends, x, y, s, lv, valid, F):
     out = torch.full((x.shape[0], 36), -1.0)
-    table = np.asarray([[b.data_ptr(), b.shape[0] // F, *b.shape[1:], e]
-                        for b, e in zip(blurs, row_ends)], np.int64)
+    table = np.asarray([[b.data_ptr(), b.shape[0] // F, *b.shape[1:], e, 0,
+                         1, b.shape[1] - 2] for b, e in zip(blurs, row_ends)],
+                       np.int64)
     assert lib.ps_orientation_hist_octaves(
         table.ctypes.data, len(blurs), x.shape[0], x.shape[0] // F,
         x.data_ptr(), y.data_ptr(), s.data_ptr(), lv.data_ptr(),
@@ -513,8 +514,8 @@ def test_refine_octaves_source(refine_lib, F, vlfeat):
                                             (F, 3)))
     n_found[0, 2] = 0
     out = torch.full((F * Ktot, 16), -1.0)
-    table = np.asarray([[d.data_ptr(), D, *d.shape[1:], e] for d, e in
-                        zip(dogs, np.cumsum(caps))], np.int64)
+    table = np.asarray([[d.data_ptr(), D, *d.shape[1:], e, 0, d.shape[1]]
+                        for d, e in zip(dogs, np.cumsum(caps))], np.int64)
     assert refine_lib.ps_refine_octaves(
         table.ctypes.data, 3, F, x0.data_ptr(), y0.data_ptr(), z0.data_ptr(),
         n_found.data_ptr(), D, int(vlfeat), out.data_ptr(), None) == 0

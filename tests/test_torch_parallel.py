@@ -15,7 +15,8 @@ devices; the port of tests/test_parallel.py.
   (tests/test_parallel.py:60-98): every (i, j) pair equal to the port's
   ``match_brute_small`` and to JAX's ``make_allpairs_match_fn`` (accept
   equal, ``best_idx`` equal on accepted rows, ``best_dist`` within 1e-5);
-* ``tools/dryrun_multichip.py`` at 2 ranks on the CPU.
+* ``tools/dryrun_multichip.py`` at 2 ranks on the CPU, its spatially
+  sharded pyramid and extraction (items 2 and 2b) included.
 
 The ranks start once for the module (``parallel/launch.py::spawn``, rank
 body ``tools/rank_cases.py::parallel_suite``).
@@ -209,4 +210,6 @@ def test_dryrun_multichip_on_two_cpu_ranks():
         cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     assert "dryrun_multichip: 2 ranks" in proc.stdout
-    assert "not yet ported" in proc.stdout
+    assert "spatial pyramid (6, 64, 64)" in proc.stdout
+    assert "(equal to extract=True)" in proc.stdout
+    assert "not yet ported" not in proc.stdout
