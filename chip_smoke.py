@@ -243,14 +243,35 @@ any failed phase raises and the script exits non-zero:
    the unbounded launch, timed beside their bounds; (c) DP x SP, a (2, 2)
    mesh of four ranks on the card, frames 0-1 against (b); (f) phase
    12's run of ``tools/dryrun_multichip.py`` at world size 2 on the
-   card, its spatial items (2, 2b) equal to ``extract``.
+   card, its spatial items (2, 2b) equal to ``extract``;
+14. the port's copy of the NumPy oracle (``popsift_tpu_torch/oracle/``,
+   run in ``ORACLE_WORKERS`` host processes while the card runs (c)) and
+   the JAX package's per-octave public names: (a) the copy's
+   ``oracle_extract`` on the five golden cases, each field's max
+   difference from tests/golden printed and held within ``GOLDEN_TOL``;
+   (b) ``PopSift(cfg, device="cuda")`` on the three ``ORACLE_SCENES``
+   (240 x 320, outside the fixtures) against the copy by
+   tests/test_pipeline.py:15-38's rule (equal counts, a greedy 1-1 match
+   within 5e-3 px, sigma within 1e-3, equal orientation counts, each
+   descriptor within ``GOLDEN_TOL["desc"]``); (c) on the bench frame,
+   every launch counter reset just before it, ``build_pyramid_octaves``
+   then per octave ``detect_extrema``, ``assign_orientations``,
+   ``make_descriptor_jobs``, ``compute_descriptors`` and
+   ``normalize_descriptors``: K1's, K3's and K4's one-octave entries and
+   the compaction and K2's all-octave entry once an octave (K4 where the
+   octave has jobs), the all-octave K1, K3 and K4 not at all; every
+   octave's rows equal to ``extract``'s (masks, counts and positions
+   exact, angles and descriptors within ``GOLDEN_TOL``, their largest
+   differences printed), 2110 / 2505 in all; ``make_extract_fn`` equal to ``extract``;
+   ms/frame of both in turns.
 
 TF32 is switched off for matmuls and cuDNN (the plain versions must run
 in full f32). The second line before the last is a JSON object with one
 entry per kernel entry (``launches`` from the run of its path: phase 4
 for the entries of the single-frame path, phase 6 for the window copy,
 the chain front and the entries off every path, phase 13 (a) for the
-bounded entries); the last line is the device record. ``--profile DIR`` also writes a torch.profiler table of
+bounded entries, phase 14 (c) for the one-octave entries of K1, K3 and
+K4); the last line is the device record. ``--profile DIR`` also writes a torch.profiler table of
 one run of the main path, of the window route and of the chain front to
 DIR/profile*.txt and prints each run's counts, and phase 9's tables of
 each timed SfM call. Phase 10 alone: ``drivers_phase(torch.device(
@@ -315,8 +336,8 @@ LAUNCHES_FROM = {
     "extrema_mask_octaves": "main", "compact": "main",
     "refine_octaves": "main",
     "orientation_hist_octaves": "main", "descriptor_loop_octaves": "main",
-    "descriptor_loop": "off_path", "extrema_mask": "off_path",
-    "extrema_mask_batched": "off_path", "orientation_hist": "off_path",
+    "descriptor_loop": "per_octave", "extrema_mask": "per_octave",
+    "extrema_mask_batched": "off_path", "orientation_hist": "per_octave",
     "refine": "off_path", "refine_batched": "off_path",
     "extract_windows": "windows", "extract_windows_batched": "windows_batch",
     "blur_chain": "chain", "descriptor_loop_patches": "off_path",
@@ -1120,25 +1141,30 @@ def kernels_phase(frames: list, dev, reps: int = 20) -> list:
     return rows
 
 
+def golden_cases() -> dict:
+    """name -> (image, SiftConfig, the oracle's descriptor variant) of the
+    five goldens of tests/golden (scripts/make_golden.py:28-55)."""
+    from popsift_tpu_torch.config import SiftConfig
+    s64 = synthetic_image(64, 80, seed=3)
+    return {"scene64_default": (s64, SiftConfig(octaves=3), "loop"),
+            "scene120_default": (synthetic_image(120, 160, seed=7),
+                                 SiftConfig(octaves=4), "loop"),
+            "scene64_vlfeat_igrid": (s64, SiftConfig(
+                octaves=3, sift_mode="vlfeat", desc_mode="igrid",
+                norm_mode="classic"), "igrid"),
+            "scene64_grid_fixed9": (s64, SiftConfig(
+                octaves=3, gauss_mode="fixed9", desc_mode="grid"), "grid"),
+            "scene64_iloop_interp": (s64, SiftConfig(
+                octaves=3, desc_mode="iloop",
+                downscale_mode="interpolate"), "iloop")}
+
+
 def golden_phase(dev) -> None:
     """The port on the card against the five oracle goldens of
     tests/golden (configurations of scripts/make_golden.py:28-55,
     tolerances of tests/test_golden.py:21-24)."""
     from popsift_tpu_torch.api import PopSift
-    from popsift_tpu_torch.config import SiftConfig
-    s64 = synthetic_image(64, 80, seed=3)
-    cases = {"scene64_default": (s64, SiftConfig(octaves=3)),
-             "scene120_default": (synthetic_image(120, 160, seed=7),
-                                  SiftConfig(octaves=4)),
-             "scene64_vlfeat_igrid": (s64, SiftConfig(
-                 octaves=3, sift_mode="vlfeat", desc_mode="igrid",
-                 norm_mode="classic")),
-             "scene64_grid_fixed9": (s64, SiftConfig(
-                 octaves=3, gauss_mode="fixed9", desc_mode="grid")),
-             "scene64_iloop_interp": (s64, SiftConfig(
-                 octaves=3, desc_mode="iloop",
-                 downscale_mode="interpolate"))}
-    for name, (img, cfg) in cases.items():
+    for name, (img, cfg, _) in golden_cases().items():
         want = np.load(os.path.join(REPO, "tests", "golden", f"{name}.npz"))
         host = PopSift(cfg, device=dev).enqueue(img).get()
         feats = sorted(host.features(), key=lambda f: (
@@ -4521,6 +4547,271 @@ def spatial_phase(frames: list, dev, card: str = "", reps: int = 5,
     return out
 
 
+# phase 14 (b): scenes outside the five goldens, chosen before any run on
+# the card: name -> ((h, w, seed) of synthetic_image, SiftConfig keywords,
+# the oracle's descriptor variant)
+ORACLE_SCENES = {
+    "scene240_seed11_default": ((240, 320, 11), dict(octaves=5), "loop"),
+    "scene240_seed5_default": ((240, 320, 5), dict(octaves=5), "loop"),
+    "scene240_seed11_vlfeat_igrid": ((240, 320, 11), dict(
+        octaves=5, sift_mode="vlfeat", desc_mode="igrid",
+        norm_mode="classic"), "igrid")}
+ORACLE_WORKERS = 4     # host processes running the oracle in phase 14
+
+
+def oracle_flatten(feats) -> dict:
+    """scripts/make_golden.py::flatten: the oracle's features sorted by
+    (x, y, sigma), as the golden fixtures store them."""
+    feats = sorted(feats, key=lambda f: (round(f.x, 4), round(f.y, 4),
+                                         round(f.sigma, 4)))
+    x = np.array([f.x for f in feats], np.float32)
+    y = np.array([f.y for f in feats], np.float32)
+    sigma = np.array([f.sigma for f in feats], np.float32)
+    num_ori = np.array([len(f.orientations) for f in feats], np.int32)
+    ori = np.concatenate([np.asarray(f.orientations, np.float32)
+                          for f in feats]) if feats else np.zeros(0)
+    desc = np.concatenate([np.stack(f.descriptors).astype(np.float32)
+                           for f in feats]) if feats else np.zeros((0, 128))
+    return dict(x=x, y=y, sigma=sigma, num_ori=num_ori, ori=ori, desc=desc)
+
+
+def match_to_oracle(tag: str, host, feats) -> dict:
+    """tests/test_pipeline.py:15-38's rule for the port's ``FeaturesHost``
+    against the oracle's features: equal counts, a greedy 1-1 match of
+    each keypoint to the nearest unused oracle keypoint within
+    |dx| + |dy| < 5e-3 px, sigma within 1e-3, equal orientation counts and
+    each descriptor within ``GOLDEN_TOL["desc"]``. Returns the counts
+    and the worst errors."""
+    check(host.getFeatureCount() == len(feats),
+          f"{tag}: {host.getFeatureCount()} keypoints vs the oracle's "
+          f"{len(feats)}")
+    used = [False] * len(feats)
+    worst = dict(pos=0.0, sigma=0.0, desc=0.0)
+    for g in host.features():
+        best, bi = None, -1
+        for i, o in enumerate(feats):
+            d = abs(g.x - o.x) + abs(g.y - o.y)
+            if not used[i] and (best is None or d < best):
+                best, bi = d, i
+        check(best is not None and best < GOLDEN_TOL["x"],
+              f"{tag}: keypoint ({g.x}, {g.y}) unmatched (nearest {best})")
+        used[bi] = True
+        o = feats[bi]
+        ds = abs(g.sigma - o.sigma)
+        check(ds < GOLDEN_TOL["sigma"], f"{tag}: sigma off by {ds}")
+        check(g.num_ori == len(o.orientations), f"{tag}: num_ori "
+              f"{g.num_ori} vs the oracle's {len(o.orientations)}")
+        dd = max((float(np.abs(g.descriptors[j] - o.descriptors[j]).max())
+                  for j in range(g.num_ori)), default=0.0)
+        check(dd < GOLDEN_TOL["desc"], f"{tag}: descriptor off by {dd}")
+        worst = dict(pos=max(worst["pos"], best),
+                     sigma=max(worst["sigma"], ds),
+                     desc=max(worst["desc"], dd))
+    return dict(keypoints=len(feats),
+                descriptors=sum(len(o.orientations) for o in feats),
+                worst=worst)
+
+
+def per_octave_chain(frame: torch.Tensor, plan) -> list:
+    """The JAX package's per-octave public names on each octave of
+    ``frame``: ``build_pyramid_octaves``, then per octave
+    ``detect_extrema``, ``assign_orientations``, ``make_descriptor_jobs``,
+    ``compute_descriptors`` and ``normalize_descriptors``. Returns per
+    octave (extrema, orientations, jobs, descriptors)."""
+    from popsift_tpu_torch.ops.descriptors import (compute_descriptors,
+                                                   normalize_descriptors)
+    from popsift_tpu_torch.ops.pyramid import build_pyramid_octaves
+    from popsift_tpu_torch.pipeline import (assign_orientations,
+                                            detect_extrema,
+                                            make_descriptor_jobs)
+    cfg = plan.config
+    out = []
+    for o, (levels, dog_layers) in enumerate(
+            build_pyramid_octaves(frame, plan.pyramid)):
+        blur, dog = torch.stack(levels), torch.stack(dog_layers)
+        H, W = plan.pyramid.dims[o]
+        ext = detect_extrema(dog, cfg, plan.ext_caps[o], W, H)
+        oris = assign_orientations(blur, ext, cfg)
+        jobs = make_descriptor_jobs(ext, oris, plan.job_caps[o])
+        desc = normalize_descriptors(compute_descriptors(blur, jobs, cfg),
+                                     cfg)
+        out.append((ext, oris, jobs, desc))
+    return out
+
+
+def chain_against_extract(chain: list, feats, plan) -> dict:
+    """Each octave's rows of the per-octave chain against ``extract``'s
+    rows of that octave: the keypoint masks, x, y and sigma (scaled to the
+    input image), the orientation masks and the job masks exact, the
+    angles and the descriptors within ``GOLDEN_TOL`` (the card runs the
+    same kernel bodies, so they are expected bit-equal; the CPU's plain
+    versions round exp and atan2 by where a row lies in the batch, and
+    the peak fit turns a 1-ULP histogram change into up to 5e-5 rad);
+    returns the totals and the largest differences."""
+    ko = np.concatenate([[0], np.cumsum(plan.ext_caps)]).astype(int)
+    jo = np.concatenate([[0], np.cumsum(plan.job_caps)]).astype(int)
+    up = plan.config.upscale_factor
+    n_kp = n_desc = 0
+    ori_err = desc_err = 0.0
+    for o, (ext, oris, jobs, desc) in enumerate(chain):
+        k, j = slice(ko[o], ko[o + 1]), slice(jo[o], jo[o + 1])
+        scale = 2.0 ** (o - up)
+        for name, a, b in (
+                ("valid", ext.valid, feats.valid[k]),
+                ("x", ext.x * scale, feats.x[k]),
+                ("y", ext.y * scale, feats.y[k]),
+                ("sigma", ext.sigma * scale, feats.sigma[k]),
+                ("ori_valid", oris.ori_valid, feats.ori_valid[k]),
+                ("num_ori", oris.num_ori, feats.num_ori[k]),
+                ("desc_valid", jobs.valid, feats.desc_valid[j])):
+            check(torch.equal(a, b), f"(c) octave {o}: {name} differs from "
+                  f"extract's")
+        ori_err = max(ori_err, float((oris.ori - feats.ori[k]).abs().max()))
+        n = int(jobs.count)
+        if n:
+            desc_err = max(desc_err, float((desc[:n] - feats.desc[j][:n])
+                                           .abs().max()))
+        n_kp += int((ext.valid & (oris.num_ori > 0)).sum())
+        n_desc += n
+    check(ori_err < GOLDEN_TOL["ori"], f"(c) orientations off extract's by "
+          f"{ori_err}")
+    check(desc_err < GOLDEN_TOL["desc"], f"(c) descriptors off extract's "
+          f"by {desc_err}")
+    return dict(keypoints=n_kp, descriptors=n_desc, ori_max_abs_err=ori_err,
+                desc_max_abs_err=desc_err)
+
+
+def oracle_phase(frame: np.ndarray, dev, reps: int = 5,
+                 expect: tuple | None = (BENCH_KEYPOINTS,
+                                         BENCH_DESCRIPTORS),
+                 capacity: int = 8192) -> dict:
+    """Phase 14: the port's copy of the NumPy oracle and the per-octave
+    public names. (a) the copy's ``oracle_extract`` on the five golden
+    cases against tests/golden, each field's max difference printed and
+    held within ``GOLDEN_TOL``; (b) the port on the card against the
+    copy on ``ORACLE_SCENES`` by tests/test_pipeline.py's rule
+    (:func:`match_to_oracle`); (c) the per-octave chain on ``frame`` at
+    ``SiftConfig(extrema_capacity=capacity)``, every launch counter reset
+    just before it, against ``extract``'s rows (``expect``: its keypoint
+    and descriptor totals), ``make_extract_fn`` equal to ``extract``, and
+    both timed in turns. The oracle runs in ``ORACLE_WORKERS`` host
+    processes while the card runs (c). Returns (c)'s launches."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from popsift_tpu_torch.api import PopSift
+    from popsift_tpu_torch.config import SiftConfig
+    from popsift_tpu_torch.ops import kernels
+    from popsift_tpu_torch.oracle import oracle_extract
+    from popsift_tpu_torch.pipeline import (build_extract_plan, extract,
+                                            make_extract_fn)
+    t_phase = time.perf_counter()
+    fixtures = golden_cases()
+    cases = dict(fixtures)
+    for name, ((h, w, seed), kw, variant) in ORACLE_SCENES.items():
+        cases[name] = (synthetic_image(h, w, seed=seed), SiftConfig(**kw),
+                       variant)
+    with ProcessPoolExecutor(
+            ORACLE_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        # the largest scenes first
+        jobs = {name: pool.submit(oracle_extract, img, cfg,
+                                  desc_variant=variant)
+                for name, (img, cfg, variant) in sorted(
+                    cases.items(), key=lambda c: -c[1][0].size)}
+
+        # (c) on the card meanwhile
+        cfg = SiftConfig(extrema_capacity=capacity)
+        plan = build_extract_plan(cfg, *frame.shape)
+        uploaded = torch.from_numpy(frame).to(dev)
+        feats = extract(uploaded, plan, dev)
+        per_octave_chain(uploaded, plan)      # warm: the cached constants
+        sync(dev)
+        kernels.reset_launch_counts()
+        chain = per_octave_chain(uploaded, plan)
+        sync(dev)
+        launches = kernels.launch_counts()
+        n_oct = len(plan.ext_caps)
+        with_jobs = sum(int(c[2].count) > 0 for c in chain)
+        want = dict(extrema_mask=n_oct, compact=n_oct, refine_octaves=n_oct,
+                    orientation_hist=n_oct, descriptor_loop=with_jobs,
+                    extrema_mask_octaves=0, refine=0,
+                    orientation_hist_octaves=0, descriptor_loop_octaves=0)
+        if dev.type == "cuda":
+            for name, n in want.items():
+                check(launches[name] == n, f"(c) {name} launched "
+                      f"{launches[name]} times, expected {n}")
+            check(launches["blur_dog"] > 0, "(c) K5 was not launched")
+        got = chain_against_extract(chain, feats, plan)
+        if expect is not None:
+            check((got["keypoints"], got["descriptors"]) == tuple(expect),
+                  f"(c) {got['keypoints']} / {got['descriptors']}, "
+                  f"expected {expect}")
+        fn = make_extract_fn(plan, dev)
+        for name, a, b in zip(feats._fields, fn(uploaded), feats):
+            check(torch.equal(a, b), f"(c) make_extract_fn: {name} differs "
+                  f"from extract's")
+        say(f"(c) per-octave chain on {frame.shape[0]} x {frame.shape[1]}, "
+            f"{n_oct} octaves: {got['keypoints']} / {got['descriptors']}; "
+            f"against extract's rows of each octave: keypoints exact, "
+            f"orientations within {got['ori_max_abs_err']:.3g} rad, "
+            f"descriptors within {got['desc_max_abs_err']:.3g}"
+            f"; make_extract_fn equal to extract in every field; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        t_wait = time.perf_counter()
+        oracle = {name: job.result() for name, job in jobs.items()}
+        oracle_wait_s = time.perf_counter() - t_wait
+
+    # (a) the copy against the fixtures
+    for name in fixtures:
+        fixture = np.load(os.path.join(REPO, "tests", "golden",
+                                       f"{name}.npz"))
+        flat = oracle_flatten(oracle[name])
+        check(len(flat["x"]) == len(fixture["x"])
+              and np.array_equal(flat["num_ori"], fixture["num_ori"]),
+              f"(a) {name}: {len(flat['x'])} keypoints vs the fixture's "
+              f"{len(fixture['x'])}, or orientation counts differ")
+        errs = {k: float(np.max(np.abs(flat[k] - fixture[k]), initial=0.0))
+                for k in GOLDEN_TOL}
+        for k, tol in GOLDEN_TOL.items():
+            check(errs[k] < tol, f"(a) {name}: {k} off the fixture by "
+                  f"{errs[k]}")
+        say(f"(a) oracle copy, {name}: {len(flat['x'])} keypoints, "
+            f"{len(flat['desc'])} descriptors, max difference from the "
+            f"fixture {errs}")
+
+    # (b) the port on the card against the copy
+    out = {}
+    for name in ORACLE_SCENES:
+        img, cfg, _ = cases[name]
+        host = PopSift(cfg, device=dev).enqueue(img).get()
+        out[name] = match_to_oracle(f"(b) {name}", host, oracle[name])
+        say(f"(b) {name} ({img.shape[0]} x {img.shape[1]}, "
+            f"{cfg.sift_mode}, {cfg.desc_mode}): the port on {dev.type} "
+            f"against the oracle copy: {out[name]['keypoints']} / "
+            f"{out[name]['descriptors']} on both, worst {out[name]['worst']}")
+
+    # (c)'s times, after the oracle's processes ended
+    def run(f):
+        f()
+        sync(dev)
+
+    paths = {"extract": lambda: extract(uploaded, plan, dev),
+             "chain": lambda: per_octave_chain(uploaded, plan)}
+    times = {k: [] for k in paths}
+    for i in range(reps):
+        for k in (("extract", "chain") if i % 2 == 0
+                  else ("chain", "extract")):
+            t0 = time.perf_counter()
+            run(paths[k])
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    ms = {k: round(statistics.median(v), 3) for k, v in times.items()}
+    say(f"(c) ms/frame (warm median of {reps} in turns, host clock, ends in "
+        f"synchronize): {ms}; oracle wait {oracle_wait_s:.1f} s, phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def profile_phase(frame: np.ndarray, dev, out_dir: str) -> None:
     """A torch.profiler table of one run of the main path, of the window
     route and of the chain front, written to DIR/profile*.txt."""
@@ -4590,6 +4881,8 @@ def main(argv=None) -> int:
                             dryrun=p12["dryrun"])
     rows += spatial["rows"]
     runs["sharded"] = spatial["launches"]
+    say("phase 14: the oracle copy and the per-octave public names")
+    runs["per_octave"] = oracle_phase(frames[0], dev)
     for r in rows:
         r["launches"] = runs[LAUNCHES_FROM[r["name"]]][r["name"]]
         check(r["launches"] > 0, f"{r['name']} was launched no time in the "

@@ -123,6 +123,18 @@ def make_descriptor_jobs_segmented(ext_x, ext_y, ext_sigma, ext_level,
     return jobs, counts
 
 
+def make_descriptor_jobs(ext, oris, capacity: int) -> DescriptorJobs:
+    """The padded job list of one octave's (extremum, orientation) pairs,
+    port of popsift_tpu.ops.descriptors.make_descriptor_jobs (:54-67):
+    the one-segment form of :func:`make_descriptor_jobs_segmented`, the
+    set pairs in ascending flat order first, padding rows at (row 0,
+    slot 0), ``count`` the valid jobs (at most ``capacity``)."""
+    jobs, _ = make_descriptor_jobs_segmented(
+        ext.x, ext.y, ext.sigma, ext.level, oris.ori, oris.ori_valid,
+        ((0, ext.x.shape[0], capacity),))
+    return jobs
+
+
 def loop_patch_radius(cfg: SiftConfig) -> int:
     """Static window bound of the loop variant: |p - kp|_inf <
     2.5 sqrt(2) SBP, sigma at sn < maxlevel - 0.5 (s_desc_loop.cu:58-91)."""

@@ -25,7 +25,11 @@ Port of :mod:`popsift_tpu.ops.extrema` (default, dense-stack path):
 * :func:`collect_candidates`, :func:`collect_candidates_batched` and
   :func:`collect_refined_batched` are the one-octave forms (the latter
   two for F frames' stacks laid back to back on the layer axis), which
-  call K2's one-octave entries; no extraction path calls them.
+  call K2's one-octave entries; no extraction path calls them;
+* :func:`detect_extrema` and :func:`collect_refined` are the JAX
+  package's public one-octave names: K1's one-octave entry, the
+  compaction and K2's all-octave entry on a list of one stack (which
+  takes row bounds and reads no count back).
 
 Row bands (``parallel/spatial.py``): a band's DoG stack carries halo rows
 above and below the rows it owns. Its detection is the same all-octave
@@ -427,3 +431,63 @@ def finalize_refined(state: torch.Tensor, cand_valid: torch.Tensor,
         n_candidates=torch.as_tensor(n_candidates, device=dev),
         n_dropped=torch.as_tensor(n_dropped, device=dev),
     )
+
+
+def _refined_octave(dog: torch.Tensor, cfg: SiftConfig, capacity: int,
+                    row_window: tuple | None = None, y_offset: int = 0,
+                    height: int | None = None) -> tuple:
+    """(state f32[K, 16], valid bool[K], n_found, n_dropped) of one
+    octave's f32[D, H, W] DoG stack: K1's one-octave entry, the rows
+    outside ``row_window`` cleared (:func:`band_masks`), the compaction
+    and K2's launch over the one octave, rows past ``n_found`` zero. A
+    row band passes its local row 0's global row ``y_offset`` and the
+    octave's global ``height`` (K2's row bounds); nothing is read
+    back."""
+    mask = _candidate_mask(dog, cfg)
+    if row_window is not None:
+        band_masks([mask], [row_window])
+    rows = compact_octaves([mask[None]], cfg, (capacity,))
+    H = dog.shape[1]
+    height = H if height is None else int(height)
+    bounded = y_offset != 0 or height != H
+    state = refine_octaves([dog], rows, cfg, (capacity,),
+                           y_offsets=(y_offset,) if bounded else None,
+                           heights=(height,) if bounded else None)
+    n_found = rows.n_found[0, 0]
+    valid = torch.arange(capacity, device=dog.device) < n_found
+    return state, valid, n_found, rows.n_dropped[0, 0]
+
+
+def collect_refined(cfg: SiftConfig, capacity: int, dog: torch.Tensor,
+                    dims: tuple) -> RefinedSet:
+    """Mask + compaction + refinement of one octave, port of
+    popsift_tpu.ops.extrema.collect_refined (:464-493): ``vals`` f32[K,
+    16] (rows past ``n_found`` zero), ``valid`` bool[K] and the scalar
+    counts. It takes the octave's dense f32[D, H, W] DoG stack where
+    JAX takes its halo-padded canvas (the port has no canvases); ``dims``
+    = (H, W) must be the stack's."""
+    if tuple(dims) != tuple(dog.shape[1:]):
+        raise ValueError(f"collect_refined: dims {tuple(dims)} are not the "
+                         f"stack's {tuple(dog.shape[1:])}")
+    vals, valid, n_found, n_dropped = _refined_octave(dog, cfg, capacity)
+    return RefinedSet(vals=vals, valid=valid, n_found=n_found,
+                      n_dropped=n_dropped)
+
+
+def detect_extrema(dog: torch.Tensor, cfg: SiftConfig, capacity: int,
+                   oct_w: int, oct_h: int, row_window: tuple | None = None,
+                   y_offset: int = 0) -> OctaveExtrema:
+    """Detect, compact, refine and accept the extrema of one octave's
+    f32[D, H, W] DoG stack, port of popsift_tpu.ops.extrema.detect_extrema
+    (:734-760), on the stack's device with no count read back.
+
+    A row band with halo passes ``row_window=(lo, hi)``, the local rows
+    it owns, and ``y_offset``, the global row of its local row 0 (an int
+    here: it enters K2's launch table); the bound tests and the outputs
+    are then global while the reads stay in the band, and ``oct_h`` is
+    the full octave height."""
+    y_offset = int(y_offset)
+    state, valid, n_found, n_dropped = _refined_octave(
+        dog, cfg, capacity, row_window, y_offset, oct_h)
+    return finalize_refined(state, valid, cfg, oct_w, oct_h, n_found,
+                            n_dropped, y_offset=y_offset or None)

@@ -202,20 +202,25 @@ def _launch(name: str, blurs, row_ends, x, y, sigma, level, valid, F: int,
 
 
 def orientation_hist(blur, x, y, sigma, level, valid, n: int,
-                     radius: int) -> torch.Tensor:
+                     radius: int, y_bounds=None) -> torch.Tensor:
     """f32[K, 36] raw histograms of keypoint rows [0, n) on the octave's
     f32[L, H, W] blur stack: plain version on the CPU, kernel K3 on a
     CUDA device (which needs no static ``radius``: each warp walks its
-    own keypoint's window)."""
+    own keypoint's window). ``y_bounds`` = (lo, hi) are inclusive scan
+    rows in place of (1, H-2), JAX's ``_orientation_hist_xla(y_bounds=)``
+    (orientation.py:52-65), intersected with them."""
     global launches
     if blur.dim() != 3 or blur.dtype != torch.float32:
         raise ValueError("orientation_hist expects a f32[L, H, W] stack")
     if blur.device.type == "cpu":
         return orientation_hist_torch(blur, x, y, sigma, level, valid, n,
-                                      radius)
+                                      radius, y_bounds=y_bounds)
     if not 0 <= n <= x.shape[0]:
         raise ValueError(f"orientation_hist: n={n} outside [0, {x.shape[0]}]")
-    out = _launch(NAME, [blur], [n], x, y, sigma, level, valid, 1, n)
+    specs = row_specs(NAME, [blur], None,
+                      None if y_bounds is None else [y_bounds])
+    out = _launch(NAME, [blur], [n], x, y, sigma, level, valid, 1, n,
+                  specs=specs)
     launches += 1 if n else 0
     return out
 

@@ -5,7 +5,8 @@ as kernel K3 (ops/kernels/orient.py), one launch for all octaves of a
 frame or batch (:func:`orientation_histograms_octaves`); smoothing,
 parabolic peak refinement and the 0.8-max acceptance of at most four
 peaks (s_orientation.cu:142-241) are [K, 36] tensor math run once over
-all octaves.
+all octaves. :func:`assign_orientations` is the JAX package's public
+one-octave form: K3's one-octave entry over all K rows, then the tail.
 """
 
 from __future__ import annotations
@@ -39,14 +40,16 @@ def max_ori_radius(cfg: SiftConfig) -> int:
 
 def orientation_histograms(blur: torch.Tensor, ext: OctaveExtrema,
                            cfg: SiftConfig, n: int,
-                           plain: bool = False) -> torch.Tensor:
+                           plain: bool = False,
+                           y_bounds=None) -> torch.Tensor:
     """Raw f32[K, 36] histograms of one octave's keypoint rows (kernel K3,
     or its plain version with ``plain``); rows at or past ``n`` (the
     octave's candidate count, beyond which no row is valid) and invalid
-    rows are zero."""
+    rows are zero. ``y_bounds``: inclusive scan rows of a row band, as
+    JAX's (:52-65)."""
     fn = orientation_hist_torch if plain else orientation_hist
     return fn(blur, ext.x, ext.y, ext.sigma, ext.level, ext.valid, n,
-              max_ori_radius(cfg))
+              max_ori_radius(cfg), y_bounds=y_bounds)
 
 
 def orientation_histograms_octaves(blurs, ext: OctaveExtrema,
@@ -139,3 +142,18 @@ def orientations_from_histograms(hist: torch.Tensor, valid: torch.Tensor,
         ori_valid=accept,
         num_ori=accept.sum(1),
     )
+
+
+def assign_orientations(blur: torch.Tensor, ext: OctaveExtrema,
+                        cfg: SiftConfig,
+                        y_bounds=None) -> OctaveOrientations:
+    """Up to four orientations of each (padded) extremum of one octave:
+    the histograms (kernel K3's one-octave entry over all K rows, which
+    zeroes the rows that are not valid, so no count is read back), then
+    :func:`orientations_from_histograms`; port of
+    popsift_tpu.ops.orientation.assign_orientations (:234-244).
+    ``y_bounds`` as in :func:`orientation_histograms`."""
+    hist = orientation_histograms(blur, ext, cfg, ext.x.shape[0],
+                                  y_bounds=y_bounds)
+    return orientations_from_histograms(hist, ext.valid,
+                                        smoothing=cfg.ori_smoothing)

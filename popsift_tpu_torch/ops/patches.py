@@ -24,6 +24,15 @@ def pad_for_patches(img: torch.Tensor, patch: int) -> torch.Tensor:
     return img[..., yi[:, None], xi[None, :]]
 
 
+def extract_patches(img: torch.Tensor, level: torch.Tensor,
+                    cy: torch.Tensor, cx: torch.Tensor, radius: int):
+    """(patches f32[K, P, P], y0, x0) with P = 2 * radius + 1: the square
+    form of :func:`extract_patches_rect`, centre ``radius`` cells from
+    the top-left (popsift_tpu.ops.patches.extract_patches, :35-55)."""
+    P = 2 * radius + 1
+    return extract_patches_rect(img, level, cy, cx, P, P, radius, radius)
+
+
 def extract_patches_rect(img: torch.Tensor, level: torch.Tensor,
                          cy: torch.Tensor, cx: torch.Tensor, rows: int,
                          cols: int, radius_y: int, radius_x: int):

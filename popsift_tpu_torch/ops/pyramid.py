@@ -455,3 +455,12 @@ def build_pyramid(img: torch.Tensor, plan: PyramidPlan,
     f32[L-1, H, W] on the image's device."""
     blurs, dogs = build_pyramid_frames(img[None], plan, plain, front)
     return tuple(b[0] for b in blurs), tuple(d[0] for d in dogs)
+
+
+def build_pyramid_octaves(img: torch.Tensor, plan: PyramidPlan) -> list:
+    """Per octave ``(levels, dog_layers)``: lists of the f32[H, W] planes
+    of :func:`build_pyramid` (views of its stacks), the form of
+    popsift_tpu.ops.pyramid.build_pyramid_octaves (:392-507)."""
+    blurs, dogs = build_pyramid(img, plan)
+    return [(list(b.unbind(0)), list(d.unbind(0)))
+            for b, d in zip(blurs, dogs)]

@@ -23,7 +23,10 @@ waiting for the card. :func:`extract` is the one-frame form of
 :func:`extract_batch`: both run the same stages, and every output of the
 batch gains a leading [F] axis.
 :func:`calibrate_plan` sizes per-octave capacities from a detect-only
-probe (pipeline.py:787-831).
+probe (pipeline.py:787-831). :func:`make_extract_fn` is JAX's closure
+over :func:`extract`, and ``detect_extrema``, ``assign_orientations``
+and ``make_descriptor_jobs`` are re-exported, as JAX's pipeline.py:31-38
+does, for callers that walk one octave at a time.
 
 Two keywords choose between the JAX package's routes. ``detect="fused"``
 (the default; JAX's ``POPSIFT_TPU_FUSED_REFINE=1``) refines with K2
@@ -47,6 +50,9 @@ from .config import SiftConfig
 from .ops import descriptors as _desc
 from .ops import extrema as _ext
 from .ops import orientation as _ori
+from .ops.descriptors import make_descriptor_jobs  # noqa: F401 (public surface)
+from .ops.extrema import detect_extrema  # noqa: F401 (public surface)
+from .ops.orientation import assign_orientations  # noqa: F401 (public surface)
 from .ops.gridfilter import maybe_grid_filter
 from .ops.pyramid import (PyramidPlan, build_pyramid, build_pyramid_frames,
                           build_pyramid_plan)
@@ -294,6 +300,17 @@ def extract_batch(imgs, plan: ExtractPlan, device, *, plain: bool = False,
         octave_candidates=rows.n_found,
         octave_dropped=rows.n_dropped,
     )
+
+
+def make_extract_fn(plan: ExtractPlan, device, desc_chunk: int = 1024):
+    """The one-frame extraction closure of popsift_tpu.pipeline
+    .make_extract_fn (:756-758): ``fn(img)`` is ``extract(img, plan,
+    device)``, with no graph capture and no cache of its own.
+    ``desc_chunk`` is JAX's chunking of its XLA descriptor loop; the
+    port's descriptor stages size their own work, so it is accepted and
+    unused."""
+    dev = resolve_device(device)
+    return lambda img: extract(img, plan, dev)
 
 
 def frame_features(feats: SiftFeatures, f: int) -> SiftFeatures:

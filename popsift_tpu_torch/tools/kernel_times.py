@@ -2,8 +2,8 @@
 """Time the kernels of the extraction path the way it calls them, and
 the path end to end, on one NVIDIA GPU: the extremum mask (K1), the
 compaction, the refinement (K2), the orientation histograms (K3), the
-descriptors (K4), the blur + DoG (K5) and the chain front's blur chain
-(K7).
+descriptors (K4), the blur + DoG (K5), the chain front's blur chain
+(K7) and the window route's window copy (K6, single frame and batch).
 
     python3 popsift_tpu_torch/tools/kernel_times.py [--tree DIR] [--reps N]
                                                     [--sass]
@@ -16,9 +16,11 @@ records every call the path makes to the wrappers of K1, the
 compaction, K2, K3, K4 and K5 with its arguments (a tree whose path
 compacts and refines per octave records those calls, with the counts
 they were given), records the K7 calls of one ``extract(...,
-front="chain")`` of the frame and the K1 calls of one ``extract`` of
-``chip_smoke.synthetic_image`` of the same size (``K1_textured``) the
-same way,
+front="chain")`` of the frame, the K6 calls of one ``extract(...,
+detect="windows")`` of the frame (``K6``) and of one ``extract_batch(...,
+detect="windows")`` of the four frames (``K6_batched``, per batch) and
+the K1 calls of one ``extract`` of ``chip_smoke.synthetic_image`` of the
+same size (``K1_textured``) the same way,
 and replays each kernel's calls of one frame: the median time per frame
 over ``--reps`` replays with CUDA events around the wrapper calls, and
 the device time of the kernels themselves from one ``torch.profiler``
@@ -160,10 +162,11 @@ def main(argv=None) -> int:
                        frames.shape[0])
 
     calls = {"K1": [], "compact": [], "K2": [], "K3": [], "K4": [],
-             "K5": [], "K7": [], "K1_textured": []}
+             "K5": [], "K7": [], "K6": [], "K6_batched": [],
+             "K1_textured": []}
     depth = [0]
     # the kernels the next run records, and under which name
-    active = set(calls) - {"K7", "K1_textured"}
+    active = set(calls) - {"K7", "K6", "K6_batched", "K1_textured"}
     suffix = [""]
 
     def record(kernel, mod, attr):
@@ -195,10 +198,16 @@ def main(argv=None) -> int:
     record("K5", P, "blur_dog")
     record("K5", P, "blur_dog_thin")
     record("K7", P, "blur_chain")
+    record("K6", E, "extract_windows")
+    record("K6_batched", E, "extract_windows_batched")
     feats = extract(frame, plan, dev)
     active.clear()
     active.add("K7")
     extract(frame, plan, dev, front="chain")
+    active.clear()
+    active.update(("K6", "K6_batched"))
+    extract(frame, plan, dev, detect="windows")
+    extract_batch(frames, plan, dev, detect="windows")
     # K1 on a textured frame of the same size (the golden scenes'
     # generator, whose contrast gate skips less of it)
     sys.path.insert(0, HERE)

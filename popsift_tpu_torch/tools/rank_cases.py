@@ -153,10 +153,11 @@ def _problem(fields: dict, device, f64: bool = False):
     return p
 
 
-def ba_cases(device, cases: dict, step_fields: dict):
+def ba_cases(device, cases: dict, step_fields: dict | None = None):
     """Distributed bundle adjustment of each case ``name -> (fields,
-    make_distributed_ba_fn keywords)``, and the first GN steps (CG and
-    dense) of ``step_fields`` in f64, all in the original point order."""
+    make_distributed_ba_fn keywords)``, and (given ``step_fields``) the
+    first GN steps (CG and dense) of ``step_fields`` in f64, all in the
+    original point order."""
     from ..sfm import ba as B
     from ..sfm import distributed as D
     mesh = M.make_mesh(device=device)
@@ -169,6 +170,8 @@ def ba_cases(device, cases: dict, step_fields: dict):
         out[name] = as_numpy(dict(
             cams=prob.cams, intr=prob.intr, costs=costs,
             points=D.gather_points(prob.points, mesh, idx)))
+    if step_fields is None:
+        return out
     part, idx = D.partition_by_point(_problem(step_fields, "cpu", True), n)
     shard = D.shard_of(part, mesh)
     lam = shard.cams.new_full((), 1e-3)

@@ -2,8 +2,9 @@
 copies of the shared plain-Python modules agree with the originals:
 ``SiftConfig`` field for field and default for default, the Gauss tables
 bit for bit, ``sfm/tracks.py``, ``sfm/export.py``,
-``sfm/checkpoint.py`` and ``eval/repeatability.py`` class for class and
-function for function (source and fields), the numpy classes of
+``sfm/checkpoint.py``, ``eval/repeatability.py`` and
+``oracle/sift_oracle.py`` class for class and function for function
+(source and fields), the numpy classes of
 ``sfm/incremental.py``, and ``tools/e2e_proof.py::render_sequence``
 (scripts/e2e_proof.py's scene).
 """
@@ -20,6 +21,7 @@ import pytest
 from popsift_tpu import config as jconfig
 from popsift_tpu import gauss as jgauss
 from popsift_tpu.eval import repeatability as jrepeatability
+from popsift_tpu.oracle import sift_oracle as joracle
 from popsift_tpu.sfm import checkpoint as jcheckpoint
 from popsift_tpu.sfm import export as jexport
 from popsift_tpu.sfm import incremental as jincremental
@@ -27,6 +29,7 @@ from popsift_tpu.sfm import tracks as jtracks
 from popsift_tpu_torch import config as tconfig
 from popsift_tpu_torch import gauss as tgauss
 from popsift_tpu_torch.eval import repeatability as trepeatability
+from popsift_tpu_torch.oracle import sift_oracle as toracle
 from popsift_tpu_torch.sfm import checkpoint as tcheckpoint
 from popsift_tpu_torch.sfm import export as texport
 from popsift_tpu_torch.sfm import incremental as tincremental
@@ -87,8 +90,10 @@ def test_port_has_sources():
             "popsift_tpu_torch/sfm/distributed.py",
             "popsift_tpu_torch/tools/rank_cases.py",
             "popsift_tpu_torch/tools/multiproc_worker.py",
-            "popsift_tpu_torch/tools/dryrun_multichip.py"} <= rel
-    assert len(rel) >= 69
+            "popsift_tpu_torch/tools/dryrun_multichip.py",
+            "popsift_tpu_torch/oracle/__init__.py",
+            "popsift_tpu_torch/oracle/sift_oracle.py"} <= rel
+    assert len(rel) >= 71
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -173,8 +178,17 @@ def test_tracks_copy_equals_the_original():
                                       "evaluate_pair",
                                       "strongest_descriptor_per_keypoint",
                                       "warp_image", "synthetic_scene",
-                                      "protocol_homographies"))],
-    ids=["export", "checkpoint", "incremental", "repeatability"])
+                                      "protocol_homographies")),
+    (toracle, joracle, ("_bilinear_clamped", "_conv_half",
+                        "_resample_from_input", "oracle_pyramid",
+                        "OracleExtremum", "_solve3", "_read_dog",
+                        "_is_extremum_26", "oracle_extrema", "_refine",
+                        "_gradient", "oracle_orientations", "_bilinear2d",
+                        "oracle_descriptor_grid",
+                        "oracle_descriptor_tilegrid",
+                        "oracle_descriptor_iloop", "oracle_descriptor_loop",
+                        "normalize_descriptor", "oracle_extract"))],
+    ids=["export", "checkpoint", "incremental", "repeatability", "oracle"])
 def test_numpy_copies_equal_the_originals(port, orig, names):
     """The copies keep the original's code class for class and function
     for function, and the numpy modules define exactly the original's

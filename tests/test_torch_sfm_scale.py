@@ -1,6 +1,8 @@
 """Ports of tests/test_sfm_scale.py through the port alone (the driver on
 the CPU, its own generator, the scenes of tools/sfm_scenes.py), marked
-``slow`` as the originals are."""
+``slow`` as the originals are. The distributed BA runs on 8 gloo CPU
+ranks (``parallel/launch.py::spawn``) where JAX's runs on its 8-device
+CPU mesh."""
 
 import time
 
@@ -8,9 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from popsift_tpu_torch.parallel.launch import spawn
 from popsift_tpu_torch.sfm.ba import bundle_adjust
 from popsift_tpu_torch.sfm.evaluate import ate_rmse
 from popsift_tpu_torch.sfm.incremental import IncrementalSfM
+from popsift_tpu_torch.tools import rank_cases
 from popsift_tpu_torch.tools.sfm_scenes import (INTR, camera_centers,
                                                 make_sequence,
                                                 tracks_from_vis)
@@ -23,10 +27,11 @@ def _ate(sfm, cams):
 
 @pytest.mark.slow
 def test_sequence_reconstruction_scale():
-    """Port of :153-200. Its second half, the distributed BA on an
-    8-device mesh against the single-device one, waits for the port's
-    multi-device module (ROADMAP A13); here the single-device BA of the
-    final problem runs and holds its cost."""
+    """Port of :77-125: the 40-camera sequence, then the final problem's
+    distributed BA (``make_distributed_ba_fn`` on
+    ``partition_by_point(prob, 8)``, 8 gloo CPU ranks) against the
+    single-process ``bundle_adjust``: the same start cost (rtol 1e-4)
+    and the final cost within 1 %."""
     rng = np.random.default_rng(11)
     n_cams = 40
     X, cams, kps, vis = make_sequence(rng, n_cams=n_cams)
@@ -47,6 +52,20 @@ def test_sequence_reconstruction_scale():
     _, single_costs = bundle_adjust(prob, iters=3)
     assert bool(torch.isfinite(single_costs).all())
     assert float(single_costs[-1]) <= float(single_costs[0])
+
+    # the distributed final BA must agree with the single-process one
+    # (the problem enters converged from global_ba, so LM holds it flat)
+    fields = {k: v.cpu().numpy() for k, v in prob._asdict().items()}
+    ranks = spawn(rank_cases.ba_cases, 8, "gloo", "cpu", timeout=600,
+                  args=({"final": (fields, dict(iters=3, cg_iters=20))},))
+    dist_costs = ranks[0]["final"]["costs"]
+    for r in ranks[1:]:
+        np.testing.assert_array_equal(r["final"]["costs"], dist_costs)
+    np.testing.assert_allclose(float(dist_costs[0]),
+                               float(single_costs[0]), rtol=1e-4)
+    rel = abs(float(dist_costs[-1]) - float(single_costs[-1])) \
+        / max(float(single_costs[-1]), 1e-9)
+    assert rel < 0.01, (float(dist_costs[-1]), float(single_costs[-1]))
 
 
 @pytest.mark.slow
