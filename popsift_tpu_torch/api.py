@@ -28,6 +28,7 @@ from .pipeline import (DETECT_ROUTES, ExtractPlan, SiftFeatures,
                        build_extract_plan, calibrate_plan, extract,
                        extract_batch, frame_features, saturation_report)
 from .utils.device import resolve_device
+from .utils.profiling import count, span, to_host, tracing
 
 
 @dataclass
@@ -64,21 +65,30 @@ class FeaturesHost:
     descriptor -> keypoint map, as numpy arrays."""
 
     def __init__(self, raw: SiftFeatures):
-        r = {k: v.cpu().numpy() for k, v in raw._asdict().items()}
-        kp_rows = np.nonzero(r["valid"])[0]
-        kp_rows = kp_rows[r["num_ori"][kp_rows] > 0]
-        self.x = r["x"][kp_rows]
-        self.y = r["y"][kp_rows]
-        self.sigma = r["sigma"][kp_rows]
-        self.octave = r["octave"][kp_rows]
-        self.num_ori = r["num_ori"][kp_rows]
-        self.orientations = r["ori"][kp_rows]
-        self.ori_valid = r["ori_valid"][kp_rows]
-        d_rows = np.nonzero(r["desc_valid"])[0]
-        self.descriptors = r["desc"][d_rows]
-        remap = -np.ones(r["x"].shape[0], np.int64)
-        remap[kp_rows] = np.arange(len(kp_rows))
-        self.desc_to_kp = remap[r["desc_kp"][d_rows]]
+        with span("copy"):
+            r = {k: to_host(v) for k, v in raw._asdict().items()}
+        with span("compact"):
+            kp_rows = np.nonzero(r["valid"])[0]
+            kp_rows = kp_rows[r["num_ori"][kp_rows] > 0]
+            self.x = r["x"][kp_rows]
+            self.y = r["y"][kp_rows]
+            self.sigma = r["sigma"][kp_rows]
+            self.octave = r["octave"][kp_rows]
+            self.num_ori = r["num_ori"][kp_rows]
+            self.orientations = r["ori"][kp_rows]
+            self.ori_valid = r["ori_valid"][kp_rows]
+            d_rows = np.nonzero(r["desc_valid"])[0]
+            self.descriptors = r["desc"][d_rows]
+            remap = -np.ones(r["x"].shape[0], np.int64)
+            remap[kp_rows] = np.arange(len(kp_rows))
+            self.desc_to_kp = remap[r["desc_kp"][d_rows]]
+            if tracing():
+                count("rows_valid.desc", len(d_rows))
+                count("d2h_bytes_kept", sum(
+                    a.nbytes for a in (
+                        self.x, self.y, self.sigma, self.octave,
+                        self.num_ori, self.orientations, self.ori_valid,
+                        self.descriptors, self.desc_to_kp)))
 
     def getFeatureCount(self) -> int:
         return int(len(self.x))
@@ -136,10 +146,10 @@ class FeaturesDev:
         return self.raw.desc_valid
 
     def getFeatureCount(self) -> int:
-        return int(self.raw.n_keypoints)
+        return int(to_host(self.raw.n_keypoints))
 
     def getDescriptorCount(self) -> int:
-        return int(self.raw.n_descriptors)
+        return int(to_host(self.raw.n_descriptors))
 
     def match(self, other: "FeaturesDev") -> MatchResult:
         """Ratio-test match of these descriptors against ``other``'s
@@ -153,13 +163,16 @@ class FeaturesDev:
 
 class SiftJob:
     """Extraction handle (SiftJob, popsift.h:40-71): ``get`` returns
-    FeaturesHost in extracting mode and FeaturesDev in matching mode."""
+    FeaturesHost in extracting mode and FeaturesDev in matching mode.
+    ``request`` is the id of the traced request that made the job (None
+    when tracing was off): the spans of its ``get`` belong to it."""
 
     def __init__(self, raw: SiftFeatures, plan: ExtractPlan | None = None,
-                 mode: str = "extracting"):
+                 mode: str = "extracting", request: int | None = None):
         self._raw = raw
         self._plan = plan
         self._mode = mode
+        self._request = request
         self._host = None
         self._warned = False
 
@@ -170,7 +183,9 @@ class SiftJob:
         if self._warned or self._plan is None:
             return
         self._warned = True
-        for msg in saturation_report(self._raw, self._plan):
+        with span("check"):
+            msgs = saturation_report(self._raw, self._plan)
+        for msg in msgs:
             warnings.warn(msg, RuntimeWarning, stacklevel=3)
 
     @property
@@ -185,13 +200,15 @@ class SiftJob:
 
     def getHost(self) -> FeaturesHost:
         if self._host is None:
-            self._check_saturation()
-            self._host = FeaturesHost(self._raw)
+            with span("get", request=self._request):
+                self._check_saturation()
+                self._host = FeaturesHost(self._raw)
         return self._host
 
     def getDev(self) -> FeaturesDev:
-        self._check_saturation()
-        return FeaturesDev(self._raw)
+        with span("get", request=self._request):
+            self._check_saturation()
+            return FeaturesDev(self._raw)
 
 
 def _check_image(image: np.ndarray, who: str) -> np.ndarray:
@@ -263,10 +280,11 @@ class PopSift:
         image is on the device and the extraction is queued, without
         waiting for the card (popsift_tpu.api.PopSift.enqueue "returns
         immediately"); the job's ``get`` waits."""
-        image = _check_image(np.asarray(image), "enqueue")
-        plan = self._plan_for(*image.shape)
-        return SiftJob(extract(image, plan, self.device, **self._routes),
-                       plan, mode=self._mode)
+        with span("enqueue") as s:
+            image = _check_image(np.asarray(image), "enqueue")
+            plan = self._plan_for(*image.shape)
+            return SiftJob(extract(image, plan, self.device, **self._routes),
+                           plan, mode=self._mode, request=s.request)
 
     def enqueue_batch(self, images) -> list:
         """Submit F same-sized grayscale frames as one batched extraction
@@ -274,17 +292,19 @@ class PopSift:
         SiftJob per frame, all sharing that run (popsift_tpu.api
         .PopSift.enqueue_batch). Each frame's result equals its own
         ``enqueue``."""
-        imgs = [_check_image(np.asarray(im), "enqueue_batch")
-                for im in images]
-        if not imgs or any(im.shape != imgs[0].shape
-                           or im.dtype != imgs[0].dtype for im in imgs):
-            raise ValueError("enqueue_batch expects F >= 1 frames of one "
-                             "shape and type")
-        plan = self._plan_for(*imgs[0].shape)
-        out = extract_batch(np.stack(imgs), plan, self.device,
-                            **self._routes)
-        return [SiftJob(frame_features(out, f), plan, mode=self._mode)
-                for f in range(len(imgs))]
+        with span("enqueue") as s:
+            imgs = [_check_image(np.asarray(im), "enqueue_batch")
+                    for im in images]
+            if not imgs or any(im.shape != imgs[0].shape
+                               or im.dtype != imgs[0].dtype for im in imgs):
+                raise ValueError("enqueue_batch expects F >= 1 frames of one "
+                                 "shape and type")
+            plan = self._plan_for(*imgs[0].shape)
+            out = extract_batch(np.stack(imgs), plan, self.device,
+                                **self._routes)
+            return [SiftJob(frame_features(out, f), plan, mode=self._mode,
+                            request=s.request)
+                    for f in range(len(imgs))]
 
     def uninit(self):
         with self._lock:

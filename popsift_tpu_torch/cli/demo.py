@@ -72,7 +72,9 @@ def build_parser():
     p.add_argument("--dont-write", action="store_true",
                    help="skip writing the output feature file")
     p.add_argument("--write-as-uchar", action="store_true")
-    p.add_argument("--print-time-info", action="store_true")
+    p.add_argument("--print-time-info", action="store_true",
+                   help="print self host ms per span and the counters "
+                        "of the run (also with -v)")
     p.add_argument("--log", action="store_true",
                    help="dump pyramid/DoG PGMs like the reference --log, "
                         "with a torch.profiler trace of the extraction")
@@ -131,12 +133,13 @@ def _write_log(img, cfg, device, log_dir: str) -> None:
     from ..ops.pyramid import build_pyramid
     from ..pipeline import build_extract_plan
     from ..utils.device import resolve_device
+    from ..utils.profiling import to_host
     import torch
     plan = build_extract_plan(cfg, *img.shape)
     blurs, dogs = build_pyramid(torch.as_tensor(img).to(
         resolve_device(device)), plan.pyramid)
     for o, (b, d) in enumerate(zip(blurs, dogs)):
-        b, d = b.cpu().numpy(), d.cpu().numpy()
+        b, d = to_host(b), to_host(d)
         for lvl in range(b.shape[0]):
             write_pgm(f"{log_dir}/pyramid-o-{o}-l-{lvl}.pgm", b[lvl])
         for lvl in range(d.shape[0]):
@@ -153,41 +156,48 @@ def main(argv=None) -> int:
 
     from ..api import PopSift
     from ..io.image import load_image, read_pgm
-    from ..utils.profiling import StageTimer, device_trace
+    from ..utils import profiling
+    from ..utils.profiling import device_trace, span
 
     if args.print_dev_info:
         from ..utils.device import device_report
         device_report()
-    timer = StageTimer()
-    with timer.stage("load"):
-        img = (read_pgm(args.input) if args.pgmread_loading
-               else load_image(args.input))
-        if args.float_mode:
-            img = img.astype(np.float32) / 255.0
-    cfg = config_from_args(args)
-    if args.print_gauss_tables:
-        _print_gauss_tables(cfg)
-    ps = PopSift(cfg, device=args.device)
-    if args.log:
-        os.makedirs(args.log_dir, exist_ok=True)
-    trace = device_trace(args.log_dir) if args.log else contextlib.nullcontext()
-    with trace, timer.stage("extract"):
-        feats = ps.enqueue(img).get()
-    dt = timer.stages["extract"][0]
-    print(f"Number of features:    {feats.getFeatureCount()}")
-    print(f"Number of descriptors: {feats.getDescriptorCount()}")
-    if args.print_time_info:
-        where = (torch.cuda.get_device_name(ps.device)
-                 if ps.device.type == "cuda" else "cpu")
-        print(f"Time: {dt:.1f} ms on {where} (first call includes "
-              f"the kernel build)")
-    if not args.dont_write:
-        with timer.stage("write"):
-            feats.save(args.output, write_as_uchar=args.write_as_uchar)
+    timed = args.print_time_info or args.verbose
+    if timed:
+        profiling.reset()
+        profiling.enable_tracing(True)
+    try:
+        with span("load"):
+            img = (read_pgm(args.input) if args.pgmread_loading
+                   else load_image(args.input))
+            if args.float_mode:
+                img = img.astype(np.float32) / 255.0
+        cfg = config_from_args(args)
+        if args.print_gauss_tables:
+            _print_gauss_tables(cfg)
+        ps = PopSift(cfg, device=args.device)
+        if args.log:
+            os.makedirs(args.log_dir, exist_ok=True)
+        trace = (device_trace(args.log_dir) if args.log
+                 else contextlib.nullcontext())
+        with trace:
+            feats = ps.enqueue(img).get()
+        print(f"Number of features:    {feats.getFeatureCount()}")
+        print(f"Number of descriptors: {feats.getDescriptorCount()}")
+        if not args.dont_write:
+            with span("write"):
+                feats.save(args.output, write_as_uchar=args.write_as_uchar)
+    finally:
+        if timed:
+            profiling.enable_tracing(False)
     if args.log:
         _write_log(img, cfg, args.device, args.log_dir)
-    if args.verbose:
-        timer.print()
+    if timed:
+        where = (torch.cuda.get_device_name(ps.device)
+                 if ps.device.type == "cuda" else "cpu")
+        print(f"Host time on {where} (a first call includes the kernel "
+              f"build):")
+        print(profiling.summary())
     return 0
 
 

@@ -73,6 +73,7 @@ def main(argv=None) -> int:
     from ..config import SiftConfig
     from ..io.image import load_image
     from ..ops.matching import match_descriptors, match_descriptors_q8
+    from ..utils.profiling import to_host
 
     cfg = SiftConfig(
         octaves=args.octaves, levels=args.levels, sigma=args.sigma,
@@ -95,17 +96,16 @@ def main(argv=None) -> int:
     matcher = match_descriptors_q8 if args.int8 else match_descriptors
     res = matcher(dev_l.raw.desc, dev_l.raw.desc_valid,
                   dev_r.raw.desc, dev_r.raw.desc_valid, ratio=args.ratio)
-    acc = res.accept.cpu().numpy()
+    acc = to_host(res.accept)
     n_acc = int(acc.sum())
     print(f"accepted matches: {n_acc}")
 
     # print matches in a show_distance-like format (features.cu:228-263)
-    host = lambda t: t.cpu().numpy()
-    bi, bd = host(res.best_idx), host(res.best_dist)
-    valid_rows = np.nonzero(host(dev_l.raw.desc_valid))[0]
-    l_kp, r_kp = host(dev_l.raw.desc_kp), host(dev_r.raw.desc_kp)
-    lx, ly = host(dev_l.raw.x), host(dev_l.raw.y)
-    rx, ry = host(dev_r.raw.x), host(dev_r.raw.y)
+    bi, bd = to_host(res.best_idx), to_host(res.best_dist)
+    valid_rows = np.nonzero(to_host(dev_l.raw.desc_valid))[0]
+    l_kp, r_kp = to_host(dev_l.raw.desc_kp), to_host(dev_r.raw.desc_kp)
+    lx, ly = to_host(dev_l.raw.x), to_host(dev_l.raw.y)
+    rx, ry = to_host(dev_r.raw.x), to_host(dev_r.raw.y)
     # optional two-view geometric verification over accepted matches
     inlier_of_row = None
     if args.geom != "none" and n_acc >= 8:
@@ -135,7 +135,7 @@ def main(argv=None) -> int:
             thr = args.geom_thresh if args.geom_thresh else 0.01
             g = ransac_essential(gen, pad(nl), pad(nr), vmask,
                                  thresh=thr * thr)
-        gi = host(g.inliers)[:N]
+        gi = to_host(g.inliers)[:N]
         print(f"geometric verification ({args.geom}): "
               f"{int(gi.sum())}/{N} inliers")
         inlier_of_row = dict(zip(rows.tolist(), gi.tolist()))

@@ -104,6 +104,7 @@ def main(argv=None) -> int:
     from ..sfm.incremental import IncrementalSfM
     from ..sfm.tracks import build_tracks
     from ..utils.device import resolve_device
+    from ..utils.profiling import to_host
 
     dev = resolve_device(args.device)
     imgs = [load_image(path) for path in args.images]
@@ -149,9 +150,9 @@ def main(argv=None) -> int:
         res = matcher(on_dev(pad_to(descs[i], cap)), on_dev(vi),
                       on_dev(pad_to(descs[j], cap)), on_dev(vj),
                       ratio=args.ratio)
-        acc = res.accept.cpu().numpy()
+        acc = to_host(res.accept)
         rows = np.nonzero(acc)[0]
-        m = np.stack([rows, res.best_idx.cpu().numpy()[rows]], axis=1)
+        m = np.stack([rows, to_host(res.best_idx)[rows]], axis=1)
         pair_matches[(i, j)] = m
         if args.verbose:
             print(f"pair ({i},{j}): {len(m)} matches")

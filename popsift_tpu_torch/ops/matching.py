@@ -33,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils.f32 import div, full_f32
+from ..utils.profiling import span
 
 RATIO = 0.8  # features.cu:223
 _BIG = 2 ** 31 - 1           # "no candidate" in the q8 matcher's int32 distances
@@ -91,19 +92,22 @@ def match_descriptors(desc_l: torch.Tensor, valid_l: torch.Tensor,
     desc_l: f32[L, 128]; desc_r: f32[R, 128]; the validity masks exclude
     capacity padding. The right set is processed in tiles of ``tile``
     rows (the last one ragged), the left set whole."""
-    L, R = desc_l.shape[0], desc_r.shape[0]
-    l_sq = torch.sum(desc_l * desc_l, 1, keepdim=True)        # [L, 1]
+    with span("match"):
+        L, R = desc_l.shape[0], desc_r.shape[0]
+        l_sq = torch.sum(desc_l * desc_l, 1, keepdim=True)    # [L, 1]
 
-    def tile_dist(a, b):
-        dt = desc_r[a:b]
-        d2 = l_sq + torch.sum(dt * dt, 1)[None, :] - 2.0 * (desc_l @ dt.T)
-        return torch.where(valid_r[None, a:b], d2, math.inf)
+        def tile_dist(a, b):
+            dt = desc_r[a:b]
+            d2 = l_sq + torch.sum(dt * dt, 1)[None, :] \
+                - 2.0 * (desc_l @ dt.T)
+            return torch.where(valid_r[None, a:b], d2, math.inf)
 
-    b_d, b_i, s_d, s_i = _scan_tiles(tile_dist, L, R, min(tile, R),
-                                     math.inf, torch.float32, desc_l.device)
-    return MatchResult(best_idx=b_i, second_idx=s_i, best_dist=b_d,
-                       second_dist=s_d,
-                       accept=_accept(b_d, s_d, valid_l, ratio))
+        b_d, b_i, s_d, s_i = _scan_tiles(tile_dist, L, R, min(tile, R),
+                                         math.inf, torch.float32,
+                                         desc_l.device)
+        return MatchResult(best_idx=b_i, second_idx=s_i, best_dist=b_d,
+                           second_dist=s_d,
+                           accept=_accept(b_d, s_d, valid_l, ratio))
 
 
 def match_brute_small(desc_l, valid_l, desc_r, valid_r, ratio=RATIO):

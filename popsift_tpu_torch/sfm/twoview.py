@@ -30,6 +30,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from ..utils.f32 import full_f32
+from ..utils.profiling import span
 from .rotation import exp_so3, hat
 
 
@@ -190,18 +191,20 @@ def ransac_essential(generator, x1, x2, valid, thresh=1e-4, n_hyp=512,
     x1, x2: [N, 2] (padded; ``valid`` masks real rows). ``thresh`` is the
     squared Sampson distance gate in normalized coords. ``ranks``
     (i64[n_hyp, 8]) replaces the draw from ``generator``."""
-    if ranks is None:
-        ranks = draw_ranks(generator, valid, n_hyp, 8)
-    res = _ransac(ranks, x1, x2, valid, _essential_hypotheses,
-                  sampson_error, thresh)
-    E = _refit_essential(x1, x2, res.inliers)
-    inl = (sampson_error(E[None], x1, x2)[0] < thresh) & valid
-    n_inl = torch.sum(inl)
-    better = n_inl >= res.n_inliers
-    return RansacResult(model=torch.where(better, E, res.model),
-                        inliers=torch.where(better, inl, res.inliers),
-                        n_inliers=torch.where(better, n_inl, res.n_inliers),
-                        score=res.score)
+    with span("ransac"):
+        if ranks is None:
+            ranks = draw_ranks(generator, valid, n_hyp, 8)
+        res = _ransac(ranks, x1, x2, valid, _essential_hypotheses,
+                      sampson_error, thresh)
+        E = _refit_essential(x1, x2, res.inliers)
+        inl = (sampson_error(E[None], x1, x2)[0] < thresh) & valid
+        n_inl = torch.sum(inl)
+        better = n_inl >= res.n_inliers
+        return RansacResult(
+            model=torch.where(better, E, res.model),
+            inliers=torch.where(better, inl, res.inliers),
+            n_inliers=torch.where(better, n_inl, res.n_inliers),
+            score=res.score)
 
 
 def _refit_essential(x1, x2, w):
@@ -218,10 +221,11 @@ def ransac_homography(generator, x1, x2, valid, thresh=4.0, n_hyp=512,
                       ranks=None) -> RansacResult:
     """Homography RANSAC in pixel coordinates; thresh = squared px.
     ``ranks`` (i64[n_hyp, 4]) replaces the draw from ``generator``."""
-    if ranks is None:
-        ranks = draw_ranks(generator, valid, n_hyp, 4)
-    return _ransac(ranks, x1, x2, valid, homography_dlt, homography_error,
-                   thresh)
+    with span("ransac"):
+        if ranks is None:
+            ranks = draw_ranks(generator, valid, n_hyp, 4)
+        return _ransac(ranks, x1, x2, valid, homography_dlt,
+                       homography_error, thresh)
 
 
 # ---------------------------------------------------------------------------

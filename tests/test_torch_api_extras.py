@@ -165,22 +165,28 @@ def test_device_report_on_cpu(capsys):
         assert printed.startswith("backend: cpu  processes: 1  devices: 1")
 
 
-def test_profiling_helpers_on_cpu(tmp_path, capsys):
-    timer = profiling.StageTimer()
-    for _ in range(2):
-        with timer.stage("extract"):
-            with profiling.trace_scope("inner"):
-                torch.ones(8).sum()
-    assert timer.stages["extract"][1] == 2
-    timer.print()
-    lines = capsys.readouterr().out.splitlines()
-    assert lines[0] == "stage                     total(ms)   mean(ms)  calls"
-    assert lines[1].startswith("extract") and lines[1].endswith("     2")
-    t = profiling.BriefDuration("brief", "cpu")
-    assert t.stop() >= 0.0
-    assert capsys.readouterr().out.startswith("[brief] ")
+def test_profiling_helpers_on_cpu(tmp_path, capsys, small_image):
+    """The demo's --print-time-info (and -v) table is the span summary:
+    load, the extraction's stages and write, and the counters of the
+    request; device_trace writes a trace that holds the spans' marks."""
+    src = str(tmp_path / "img.pgm")
+    write_pgm(src, small_image)
+    for flag in ("--print-time-info", "-v"):
+        assert tdemo.main(["-i", src, "-o", str(tmp_path / "o.txt"),
+                           "--device", "cpu", "--octaves", "2", flag]) == 0
+        lines = capsys.readouterr().out.splitlines()
+        at = lines.index("span                   calls  self ms total"
+                         "  self ms a call")
+        assert lines[at - 1].startswith("Host time on cpu")
+        rows = {l.split()[0]: l.split()[1:] for l in lines[at + 1:]}
+        for name in ("load", "enqueue", "front", "desc", "get", "copy",
+                     "write"):
+            assert rows[name][0] == "1", name
+        assert rows["host_syncs"] == ["1", "17.0"]
+        assert not profiling.tracing()
     with profiling.device_trace(str(tmp_path / "tr")):
-        with profiling.trace_scope("marked"):
+        with profiling.span("marked"):
             torch.ones(16).cumsum(0)
     trace = json.load(open(tmp_path / "tr" / "trace.json"))
-    assert any(e.get("name") == "marked" for e in trace["traceEvents"])
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert {"popsift/marked", "popsift/marked/end"} <= names
