@@ -1228,7 +1228,8 @@ def profile_counts(fn, dev, table: str | None = None) -> dict:
 def no_sync_check(tag: str, fn, want, dev) -> dict:
     """Run ``fn()`` on frames already on the card (once to warm up: the
     first run on a plan makes its constant tensors), then again with
-    every launch counter reset just before it, under
+    every launch counter reset just before it (a CUDA plan's second run
+    captures its graph, each launch counted once, and replays it), under
     ``torch.cuda.set_sync_debug_mode("error")`` (any synchronising call
     raises), hold its result to
     ``want`` in every field and check that the compaction and K2's
@@ -1408,9 +1409,12 @@ def batch_phase(frames: list, dev, reps: int = 3) -> dict:
 
     imgs = np.stack(frames)
     uploaded = torch.from_numpy(imgs).to(dev)
+    # the expected result on a plan of its own, so that the checked run is
+    # the plan's second, which captures the graph its launches go into
     no_sync_check(f"extract_batch of {F} uploaded frames",
                   lambda: extract_batch(uploaded, plan, dev),
-                  extract_batch(imgs, plan, dev), dev)
+                  extract_batch(imgs, build_extract_plan(
+                      cfg, *frames[0].shape), dev), dev)
 
     def run(route):
         if route == "batch":
@@ -2079,10 +2083,10 @@ def _same_features(tag: str, got, ref, desc_mode: str,
 
 
 def _held_kernels(run, cfg) -> dict:
-    """Run ``run()`` with K3's and (for ``desc_mode="loop"``) K4's calls
-    of the pipeline held to their plain versions on the same inputs
-    (rows within 1e-5 x the row's max); returns the largest relative
-    differences."""
+    """Run ``run()`` (an eager extraction: a plan's first) with K3's and
+    (for ``desc_mode="loop"``) K4's calls of the pipeline held to their
+    plain versions on the same inputs (rows within 1e-5 x the row's
+    max); returns the largest relative differences."""
     import popsift_tpu_torch.pipeline as P
     real_o = P._ori.orientation_histograms_octaves
     real_d = P._desc.compute_descriptors_octaves
@@ -2161,7 +2165,11 @@ def variants_phase(frames: list, dev, reps: int = 5) -> dict:
                 check(bool(torch.equal(a, b[f])), f"{tag}: frame {f}'s "
                       f"{name} differs between enqueue and extract_batch")
         err = _same_features(tag, got, run(plain=True), cfg.desc_mode)
-        err.update(_held_kernels(run, cfg))
+        # on a plan of its own: its first run is eager, so the held
+        # kernels' plain versions run beside them (a replay runs neither)
+        err.update(_held_kernels(lambda: extract_batch(
+            uploaded, build_extract_plan(cfg, *fr[0].shape), dev,
+            detect=detect), cfg))
         sync(dev)
         if dev.type == "cuda":      # a CPU rehearsal has no sync mode
             torch.cuda.set_sync_debug_mode("error")
@@ -3470,12 +3478,17 @@ def sfm_cli_phase(dev, n_frames: int = E2E_FRAMES, hw: tuple = E2E_HW,
         f"{out['e2e']['ply_bytes']} bytes")
     say(f"register_next #{n_frames // 2} under the profiler: "
         f"{json.dumps(prof)}")
+    # the counters see the eager first frame and the frame that captures
+    # the CUDA graph; every later frame replays the captured launches
+    counted = min(n_frames, 2) if dev.type == "cuda" else n_frames
     for name in ONCE + ("refine_octaves",):
-        check(launches[name] == n_frames, f"{name} launched "
-              f"{launches[name]} times for {n_frames} frames")
+        check(launches[name] == counted, f"{name} launched "
+              f"{launches[name]} times for {n_frames} frames (counted "
+              f"{counted})")
     for name in MAIN_PATH:
-        check(launches[name] >= n_frames, f"{name} launched "
-              f"{launches[name]} times for {n_frames} frames")
+        check(launches[name] >= counted, f"{name} launched "
+              f"{launches[name]} times for {n_frames} frames (counted "
+              f"{counted})")
     check(all(v > 0 for v in files.values()) and out["e2e"]["ply_bytes"] > 0,
           f"exports {files}")
     check(bool(prof) and prof["launch_calls"] > 0,

@@ -76,7 +76,7 @@ def _segment_layout(segments: tuple, level_offsets, device: torch.device):
 
 def make_descriptor_jobs_segmented(ext_x, ext_y, ext_sigma, ext_level,
                                    ori, ori_valid, segments,
-                                   level_offsets=None):
+                                   level_offsets=None, layout=None):
     """Front-packed job lists of many segments of the concatenated
     keypoint arrays, port of popsift_tpu.ops.descriptors
     .make_descriptor_jobs_segmented (:70-130).
@@ -86,16 +86,20 @@ def make_descriptor_jobs_segmented(ext_x, ext_y, ext_sigma, ext_level,
     flat order first; padding rows point at (row 0, slot 0) of the
     segment, as in JAX. ``level_offsets`` optionally adds a per-segment
     offset to the gathered level (the batched path's ``frame * L`` layer
-    addressing). Returns ``(jobs, counts)``; ``kp_index`` is local to its
-    segment and ``counts`` i64[S] holds each segment's valid jobs.
+    addressing). ``layout`` is the segments' index tensors made
+    beforehand (``_segment_layout``), for a caller that keeps them, as a
+    CUDA graph that reads them must. Returns ``(jobs, counts)``;
+    ``kp_index`` is local to its segment and ``counts`` i64[S] holds each
+    segment's valid jobs.
 
     One pass over all segments, nothing read back: an entry's rank in its
     segment is one cumsum less the segment's start, and the entries of
     rank below ``jcap`` are scattered to their job rows (the others to a
     spare row that is dropped)."""
     O = ORIENTATION_MAX_COUNT
-    c = _segment_layout(tuple(segments), None if level_offsets is None
-                        else tuple(level_offsets), ext_x.device)
+    c = layout if layout is not None else _segment_layout(
+        tuple(segments), None if level_offsets is None
+        else tuple(level_offsets), ext_x.device)
     v = ori_valid.reshape(-1)
     if not c["tiled"] or v.numel() != c["ent_pos"].numel():
         v = v[c["ent_pos"]]
@@ -172,9 +176,10 @@ _ROW_SAMPLES = {"igrid": 40 * 40 * DESC_BINS, "notile": 40 * 40 * DESC_BINS,
 _CHUNK_SAMPLES = {"cpu": 1 << 22, "cuda": 1 << 24}
 
 
-@lru_cache(maxsize=16)
+@lru_cache(maxsize=None)
 def _tables(device: torch.device):
-    """The grid tables and the tile / sample offsets on ``device``."""
+    """The grid tables and the tile / sample offsets on ``device``, never
+    dropped: a captured CUDA graph reads them by address."""
     t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
     return dict(pos=t(_GRID_POS), ww=t(_GRID_WW), Wt=t(_GRID_WT),
                 tile_off=t(np.arange(4) - 1.5),

@@ -22,6 +22,18 @@ extraction of an uploaded frame queues its work and returns without
 waiting for the card. :func:`extract` is the one-frame form of
 :func:`extract_batch`: both run the same stages, and every output of the
 batch gains a leading [F] axis.
+
+Because nothing is read back and every shape is static per plan, a CUDA
+extraction after the upload is the same chain of kernels on the same
+buffers every time. :func:`extract_batch` runs it eagerly on the first
+call for a key (plan, frames, device, input dtype, route, front), which
+makes the plan's constants and the kernel library; the second call
+captures it as a CUDA graph, kept on the plan; that call and every later
+one copy their frames into the graph's input, replay the graph (one
+launch instead of about 360) and copy the outputs into tensors of the
+call's own, so that each result outlives the next replay. The CPU and
+``plain`` stay eager.
+
 :func:`calibrate_plan` sizes per-octave capacities from a detect-only
 probe (pipeline.py:787-831). :func:`make_extract_fn` is JAX's closure
 over :func:`extract`, and ``detect_extrema``, ``assign_orientations``
@@ -40,6 +52,7 @@ once per level, ``front="chain"`` with K7 once per group of levels
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass, field
 from typing import NamedTuple
 
@@ -93,6 +106,12 @@ class ExtractPlan:
     # per (frames, device): the plan's constant tensors (_constants)
     _constants: dict = field(default_factory=dict, init=False,
                              compare=False, repr=False)
+    # per graph key: _SEEN after the first call, then the _Graph
+    _graphs: dict = field(default_factory=dict, init=False,
+                          compare=False, repr=False)
+    _graph_lock: threading.Lock = field(default_factory=threading.Lock,
+                                        init=False, compare=False,
+                                        repr=False)
 
 
 def build_extract_plan(config: SiftConfig, height: int, width: int,
@@ -135,6 +154,9 @@ class _Constants(NamedTuple):
     scale: torch.Tensor       # f32[F*Ktot] 2^(o - upscale)
     job_order: torch.Tensor | None   # job rows octave-major -> frame-major
     job_kp_offset: torch.Tensor      # i64[F*Jtot] first row of the octave
+    segments: tuple          # (first row, K, jcap) a segment, octave-major
+    level_offsets: tuple | None      # f * L a segment (F > 1)
+    jobs_layout: dict        # the segmented job build's index tensors
 
 
 def _constants(plan: ExtractPlan, F: int, dev: torch.device) -> _Constants:
@@ -158,6 +180,13 @@ def _constants(plan: ExtractPlan, F: int, dev: torch.device) -> _Constants:
         F * job_first[o] + f * jcaps[o] + np.arange(jcaps[o])
         for f in range(F) for o in range(n_oct)])
     t = lambda a: torch.as_tensor(np.tile(a, F), device=dev)
+    # one segment a (octave, frame), octave-major: K4's job rows
+    Ktot, L = int(caps.sum()), plan.config.total_levels
+    first = np.cumsum(caps) - caps
+    segs = tuple((f * Ktot + int(first[o]), int(caps[o]), int(jcaps[o]))
+                 for o in range(n_oct) for f in range(F))
+    lev = tuple(f * L for o in range(n_oct) for f in range(F)) \
+        if F > 1 else None
     c = _Constants(
         w_row=t(dims[octave, 1]), h_row=t(dims[octave, 0]),
         local_row=t(local),
@@ -165,7 +194,10 @@ def _constants(plan: ExtractPlan, F: int, dev: torch.device) -> _Constants:
                                 + np.tile(octave, F), device=dev),
         octave=t(octave), scale=t(scale),
         job_order=None if F == 1 else torch.as_tensor(order, device=dev),
-        job_kp_offset=t(np.repeat(np.cumsum(caps) - caps, jcaps)))
+        job_kp_offset=t(np.repeat(np.cumsum(caps) - caps, jcaps)),
+        segments=segs, level_offsets=lev,
+        # kept with the plan: a captured graph reads them by address
+        jobs_layout=_desc._segment_layout(segs, lev, dev))
     plan._constants[key] = c
     return c
 
@@ -207,8 +239,10 @@ def extract_batch(imgs, plan: ExtractPlan, device, *, plain: bool = False,
     uint8 (or [0, 1] float32) as a numpy array or tensor, on ``device``.
     Every output gains a leading [F] axis; frame f's row equals
     ``extract`` of that frame. ``plain``, ``detect`` and ``front`` as in
-    :func:`extract`."""
-    cfg = plan.config
+    :func:`extract`. On a CUDA device, from the second call for a key on,
+    the stages after the upload replay as one CUDA graph (see the module
+    docstring); the result is bit for bit the eager one, in tensors of
+    its own."""
     _check_route(detect)
     dev = resolve_device(device)
     imgs = _frames_tensor(imgs, dev)
@@ -216,13 +250,79 @@ def extract_batch(imgs, plan: ExtractPlan, device, *, plain: bool = False,
         raise ValueError(f"frames {tuple(imgs.shape)} do not match the plan "
                          f"(F, {plan.height}, {plan.width})")
     F = imgs.shape[0]
+    count("frames", F)
+    count("rows_padded.desc", F * sum(plan.job_caps))
+    if dev.type != "cuda" or plain:
+        return _extract_frames(imgs, plan, plain, detect, front)
+    key = (F, dev, imgs.dtype, detect, front)
+    with plan._graph_lock:
+        g = plan._graphs.get(key)
+        if g is None:
+            # eager: makes the plan's constants, the kernel library and
+            # the cached tensors that a capture must find made
+            plan._graphs[key] = _SEEN
+            return _extract_frames(imgs, plan, False, detect, front)
+        if g is _SEEN:
+            g = plan._graphs[key] = _Graph(
+                imgs, lambda x: _extract_frames(x, plan, False, detect,
+                                                front))
+            count("graph_captures")
+        with span("graph"):
+            count("frames.graph", F)
+            return g.run(imgs)
+
+
+_SEEN = "seen"       # a graph key's state after its first, eager call
+
+
+class _Graph:
+    """One extraction captured as a CUDA graph: the static input it
+    reads, the outputs it writes and the graph. Captured on a side
+    stream without ``torch.cuda.graph``, which synchronises the device
+    (the extraction promises none), and in the thread's own capture
+    mode, so that other threads' work on the card goes on."""
+
+    def __init__(self, like: torch.Tensor, fn):
+        dev = like.device
+        self.input = torch.empty(like.shape, dtype=like.dtype, device=dev)
+        self.graph = torch.cuda.CUDAGraph()
+        self.free = torch.cuda.Event()       # the last run's outputs copied
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.output = fn(self.input)
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+
+    def run(self, imgs: torch.Tensor) -> SiftFeatures:
+        """Replay on ``imgs`` [F, H, W] (on the graph's device): copy them
+        in, replay, and copy every output into a tensor of the caller's,
+        all on the current stream, after the previous run's copies."""
+        stream = torch.cuda.current_stream(imgs.device)
+        stream.wait_event(self.free)
+        self.input.copy_(imgs)
+        self.graph.replay()
+        out = SiftFeatures(*(t.clone() for t in self.output))
+        self.free.record(stream)
+        return out
+
+
+def _extract_frames(imgs: torch.Tensor, plan: ExtractPlan, plain: bool,
+                    detect: str, front: str) -> SiftFeatures:
+    """The stages after the upload, eagerly: ``imgs`` [F, H, W] on the
+    device, checked against the plan. Queues its work and reads nothing
+    back, so that a CUDA graph can capture it."""
+    cfg = plan.config
+    dev = imgs.device
+    F = imgs.shape[0]
     L = cfg.total_levels
     caps = plan.ext_caps
-    n_oct = len(caps)
     offs = np.concatenate([[0], np.cumsum(caps)]).astype(int)
     Ktot = int(offs[-1])
     const = _constants(plan, F, dev)
-    count("frames", F)
 
     # frames stacked on the layer axis: [F, L, H, W] -> [F*L, H, W]
     with span("front"):
@@ -271,19 +371,13 @@ def extract_batch(imgs, plan: ExtractPlan, device, *, plain: bool = False,
     # one K4 launch over every row (octave-major: octave o's F segments
     # end at row F * jobs_off[o + 1]), then the rows put frame-major
     with span("desc"):
-        segs, lev_offs = [], []
-        for o in range(n_oct):
-            for f in range(F):
-                segs.append((f * Ktot + int(offs[o]), caps[o],
-                             plan.job_caps[o]))
-                lev_offs.append(f * L)
         jobs, _ = _desc.make_descriptor_jobs_segmented(
             g.x, g.y, g.sigma, g.level, oris.ori, oris.ori_valid,
-            tuple(segs), level_offsets=tuple(lev_offs) if F > 1 else None)
+            const.segments, level_offsets=const.level_offsets,
+            layout=const.jobs_layout)
         jobs_off = np.concatenate([[0], np.cumsum(plan.job_caps)])
         jobs_off = jobs_off.astype(int)
         Jtot = int(jobs_off[-1])
-        count("rows_padded.desc", F * Jtot)
         raw = _desc.compute_descriptors_octaves(blurs, jobs,
                                                 jobs_off[1:] * F, cfg, plain)
         kp, desc_valid = jobs.kp_index, jobs.valid

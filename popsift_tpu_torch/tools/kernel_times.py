@@ -10,12 +10,13 @@ descriptors (K4), the blur + DoG (K5), the chain front's blur chain
 
 Runs ``extract`` once on the 1080p bench frame (``bench.make_frame``,
 seed 0, ``SiftConfig(extrema_capacity=8192)``), times ``extract`` end to
-end (warm, host clock around work that ends in a synchronize) and
+end (warm, host clock around work that ends in a synchronize; a tree
+that captures the extraction as a CUDA graph replays it) and
 ``extract_batch`` of the frames of seeds 0-3 the same way (per frame),
-records every call the path makes to the wrappers of K1, the
-compaction, K2, K3, K4 and K5 with its arguments (a tree whose path
-compacts and refines per octave records those calls, with the counts
-they were given), records the K7 calls of one ``extract(...,
+records every call the eager path of a fresh plan makes to the
+wrappers of K1, the compaction, K2, K3, K4 and K5 with its arguments
+(a tree whose path compacts and refines per octave records those calls,
+with the counts they were given), records the K7 calls of one ``extract(...,
 front="chain")`` of the frame, the K6 calls of one ``extract(...,
 detect="windows")`` of the frame (``K6``) and of one ``extract_batch(...,
 detect="windows")`` of the four frames (``K6_batched``, per batch) and
@@ -146,7 +147,9 @@ def main(argv=None) -> int:
 
     def warm_ms(fn, per):
         """Warm times in ms of ``fn()`` (host clock, ends in a
-        synchronize), divided by ``per``."""
+        synchronize), divided by ``per``, after two calls (the eager one
+        and the one that captures the graph)."""
+        fn()
         fn()
         torch.cuda.synchronize(dev)
         out = []
@@ -200,14 +203,17 @@ def main(argv=None) -> int:
     record("K7", P, "blur_chain")
     record("K6", E, "extract_windows")
     record("K6_batched", E, "extract_windows_batched")
-    feats = extract(frame, plan, dev)
+    # a fresh plan for each recorded run: its first call runs eagerly
+    fresh = lambda: build_extract_plan(SiftConfig(extrema_capacity=8192),
+                                       *frame.shape)
+    feats = extract(frame, fresh(), dev)
     active.clear()
     active.add("K7")
-    extract(frame, plan, dev, front="chain")
+    extract(frame, fresh(), dev, front="chain")
     active.clear()
     active.update(("K6", "K6_batched"))
-    extract(frame, plan, dev, detect="windows")
-    extract_batch(frames, plan, dev, detect="windows")
+    extract(frame, fresh(), dev, detect="windows")
+    extract_batch(frames, fresh(), dev, detect="windows")
     # K1 on a textured frame of the same size (the golden scenes'
     # generator, whose contrast gate skips less of it)
     sys.path.insert(0, HERE)
@@ -215,7 +221,7 @@ def main(argv=None) -> int:
     active.clear()
     active.add("K1")
     suffix[0] = "_textured"
-    extract(synthetic_image(*frame.shape), plan, dev)
+    extract(synthetic_image(*frame.shape), fresh(), dev)
     torch.cuda.synchronize(dev)
     depth[0] = 1           # the replays below record nothing more
     result = {"card": smi, "tree": tree,

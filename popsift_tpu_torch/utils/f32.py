@@ -23,11 +23,12 @@ def full_f32():
         matmul.allow_tf32 = was
 
 
-@lru_cache(maxsize=64)
+@lru_cache(maxsize=None)
 def _divisor(b: float, dtype: torch.dtype, device: torch.device
              ) -> torch.Tensor:
     """The 0-d divisor ``b`` on ``device``, made once: a fill on the
-    device, not a copy from the host (which would wait for the stream)."""
+    device, not a copy from the host (which would wait for the stream).
+    Never dropped: a captured CUDA graph reads it by address."""
     return torch.full((), b, dtype=dtype, device=device)
 
 

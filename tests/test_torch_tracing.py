@@ -188,3 +188,41 @@ def test_matching_mode_match_and_ransac(clean, small_image):
     assert "copy" not in names
     assert names[-2:] == ["match", "ransac"]
     assert P.counters()["host_syncs"] == 4
+
+
+def test_cpu_extraction_captures_no_graph(clean, popsift, small_image):
+    """On the CPU every call runs the stages eagerly: no capture, no
+    replayed frame, no ``graph`` span, and each call's stage spans and
+    counters as the first call's."""
+    P.enable_tracing(True)
+    for _ in range(3):
+        popsift.enqueue(small_image).get()
+    P.enable_tracing(False)
+    c = P.counters()
+    assert "graph_captures" not in c and "frames.graph" not in c
+    assert c["frames"] == 3
+    plan = next(iter(popsift._plans.values()))
+    assert plan._graphs == {}
+    assert c["rows_padded.desc"] == 3 * sum(plan.job_caps)
+    names = [r["name"] for r in P.spans()]
+    assert "graph" not in names
+    assert sorted(names) == sorted(3 * list(EXTRACT_STAGES))
+
+
+@pytest.mark.parametrize("detect,front", [("fused", "level"),
+                                          ("windows", "chain")])
+def test_eager_stages_equal_extract_batch_on_the_cpu(small_image, detect,
+                                                     front):
+    """The stages after the upload, called alone on uploaded frames, give
+    what ``extract_batch`` gives for the same frames."""
+    from popsift_tpu_torch.pipeline import (_extract_frames,
+                                            build_extract_plan,
+                                            extract_batch)
+    frames = np.stack([small_image, np.ascontiguousarray(small_image[::-1])])
+    plan = build_extract_plan(SiftConfig(octaves=3), *small_image.shape)
+    want = extract_batch(frames, plan, "cpu", detect=detect, front=front)
+    got = _extract_frames(torch.from_numpy(frames), plan, False, detect,
+                          front)
+    assert int(want.n_keypoints.sum()) > 0
+    for name, a, b in zip(want._fields, want, got):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
