@@ -92,8 +92,11 @@ def test_port_has_sources():
             "popsift_tpu_torch/tools/multiproc_worker.py",
             "popsift_tpu_torch/tools/dryrun_multichip.py",
             "popsift_tpu_torch/oracle/__init__.py",
-            "popsift_tpu_torch/oracle/sift_oracle.py"} <= rel
-    assert len(rel) >= 71
+            "popsift_tpu_torch/oracle/sift_oracle.py",
+            "popsift_tpu_torch/sfm/bal.py",
+            "popsift_tpu_torch/sfm/bal_reference.py",
+            "popsift_tpu_torch/tools/bal_scene.py"} <= rel
+    assert len(rel) >= 74
 
 
 @pytest.mark.parametrize("path", _port_sources(),
