@@ -8,7 +8,12 @@ read back on the way); ``get`` is where the host waits, bringing the
 result to the host. On a CUDA device, from the second call for a frame
 size on, the extraction is one replay of a CUDA graph kept with the
 size's plan (:mod:`popsift_tpu_torch.pipeline`), and each job owns a
-copy of its result.
+copy of its result. In extracting mode the extraction also packs the
+rows ``FeaturesHost`` keeps on the device, and ``enqueue`` queues the
+copy of their counts into pinned host memory; ``get`` waits for the
+counts, copies only those rows into pinned host memory, waits again and
+copies them out into arrays of the result's own: two waits, whatever the
+capacity.
 ``enqueue_batch`` runs F same-sized frames as one batched extraction and
 returns one job per frame; ``calibrate`` pins per-octave capacities for
 later calls on that frame size. ``FeaturesDev.match`` ratio-test matches
@@ -28,10 +33,12 @@ from .config import SiftConfig
 from .ops.matching import MatchResult, match_descriptors
 from .ops.pyramid import FRONTS
 from .pipeline import (DETECT_ROUTES, ExtractPlan, SiftFeatures,
-                       build_extract_plan, calibrate_plan, extract,
-                       extract_batch, frame_features, saturation_report)
+                       build_extract_plan, calibrate_plan, extract_batch,
+                       frame_features, packed_offsets, saturation_messages,
+                       saturation_report, unpack_kept)
 from .utils.device import resolve_device
-from .utils.profiling import count, span, to_host, tracing
+from .utils.profiling import (count, queue_to_host, span, stream_mark,
+                              to_host, tracing, wait)
 
 
 @dataclass
@@ -62,36 +69,31 @@ class Feature:
             stream.write(" \n")
 
 
+HOST_FIELDS = ("x", "y", "sigma", "octave", "num_ori", "orientations",
+               "ori_valid", "descriptors", "desc_to_kp")
+
+
 class FeaturesHost:
     """Compacted host-side result (FeaturesHost, features.h:65-98):
     keypoints with at least one orientation, their descriptors and the
-    descriptor -> keypoint map, as numpy arrays."""
+    descriptor -> keypoint map, as numpy arrays. Made from the padded
+    result ``raw``, read whole and compacted here, or from the kept rows
+    already on the host, a dict by field name (:data:`HOST_FIELDS`)."""
 
-    def __init__(self, raw: SiftFeatures):
-        with span("copy"):
-            r = {k: to_host(v) for k, v in raw._asdict().items()}
-        with span("compact"):
-            kp_rows = np.nonzero(r["valid"])[0]
-            kp_rows = kp_rows[r["num_ori"][kp_rows] > 0]
-            self.x = r["x"][kp_rows]
-            self.y = r["y"][kp_rows]
-            self.sigma = r["sigma"][kp_rows]
-            self.octave = r["octave"][kp_rows]
-            self.num_ori = r["num_ori"][kp_rows]
-            self.orientations = r["ori"][kp_rows]
-            self.ori_valid = r["ori_valid"][kp_rows]
-            d_rows = np.nonzero(r["desc_valid"])[0]
-            self.descriptors = r["desc"][d_rows]
-            remap = -np.ones(r["x"].shape[0], np.int64)
-            remap[kp_rows] = np.arange(len(kp_rows))
-            self.desc_to_kp = remap[r["desc_kp"][d_rows]]
-            if tracing():
-                count("rows_valid.desc", len(d_rows))
-                count("d2h_bytes_kept", sum(
-                    a.nbytes for a in (
-                        self.x, self.y, self.sigma, self.octave,
-                        self.num_ori, self.orientations, self.ori_valid,
-                        self.descriptors, self.desc_to_kp)))
+    def __init__(self, raw: SiftFeatures | dict):
+        if isinstance(raw, dict):
+            arrays = raw
+        else:
+            with span("copy"):
+                r = {k: to_host(v) for k, v in raw._asdict().items()}
+            with span("compact"):
+                arrays = _compact(r)
+        for k in HOST_FIELDS:
+            setattr(self, k, arrays[k])
+        if tracing():
+            count("rows_valid.desc", len(self.descriptors))
+            count("d2h_bytes_kept", sum(arrays[k].nbytes
+                                        for k in HOST_FIELDS))
 
     def getFeatureCount(self) -> int:
         return int(len(self.x))
@@ -133,6 +135,22 @@ class FeaturesHost:
             self.descriptors[order], write_as_uchar=write_as_uchar)
 
 
+def _compact(r: dict) -> dict:
+    """The kept rows of a padded result on the host, by field name."""
+    kp_rows = np.nonzero(r["valid"])[0]
+    kp_rows = kp_rows[r["num_ori"][kp_rows] > 0]
+    d_rows = np.nonzero(r["desc_valid"])[0]
+    remap = -np.ones(r["x"].shape[0], np.int64)
+    remap[kp_rows] = np.arange(len(kp_rows))
+    return dict(x=r["x"][kp_rows], y=r["y"][kp_rows],
+                sigma=r["sigma"][kp_rows], octave=r["octave"][kp_rows],
+                num_ori=r["num_ori"][kp_rows],
+                orientations=r["ori"][kp_rows],
+                ori_valid=r["ori_valid"][kp_rows],
+                descriptors=r["desc"][d_rows],
+                desc_to_kp=remap[r["desc_kp"][d_rows]])
+
+
 class FeaturesDev:
     """Device-resident result (FeaturesDev, features.h:100-118): keeps the
     raw capacity-padded tensors."""
@@ -168,28 +186,41 @@ class SiftJob:
     """Extraction handle (SiftJob, popsift.h:40-71): ``get`` returns
     FeaturesHost in extracting mode and FeaturesDev in matching mode.
     ``request`` is the id of the traced request that made the job (None
-    when tracing was off): the spans of its ``get`` belong to it."""
+    when tracing was off): the spans of its ``get`` belong to it.
+    ``packed`` is what ``PopSift.enqueue`` queued for the host copy: the
+    job's :class:`~popsift_tpu_torch.pipeline.Packed` rows on the
+    device, their header's host copy and the mark that copy completes
+    at; ``getHost`` then copies only the kept rows."""
 
     def __init__(self, raw: SiftFeatures, plan: ExtractPlan | None = None,
-                 mode: str = "extracting", request: int | None = None):
+                 mode: str = "extracting", request: int | None = None,
+                 packed: tuple | None = None):
         self._raw = raw
         self._plan = plan
         self._mode = mode
         self._request = request
+        self._packed = packed
         self._host = None
         self._warned = False
 
-    def _check_saturation(self):
+    def _check_saturation(self, header: np.ndarray | None = None):
         """Warn once when an octave saturated its capacity or dropped
         candidates in the compaction (a job made without its plan has
-        no capacities to check)."""
+        no capacities to check), from the packed ``header`` where given,
+        else from counts read off the device."""
         if self._warned or self._plan is None:
             return
         self._warned = True
-        with span("check"):
-            msgs = saturation_report(self._raw, self._plan)
-        for msg in msgs:
-            warnings.warn(msg, RuntimeWarning, stacklevel=3)
+        if header is None:
+            with span("check"):
+                msgs = saturation_report(self._raw, self._plan)
+        else:
+            n = len(self._plan.ext_caps)
+            msgs = saturation_messages(header[2:2 + n], header[2 + n:],
+                                       self._plan)
+        for msg in msgs:                # at the caller of getHost/getDev
+            warnings.warn(msg, RuntimeWarning,
+                          stacklevel=3 if header is None else 4)
 
     @property
     def raw(self) -> SiftFeatures:
@@ -204,9 +235,36 @@ class SiftJob:
     def getHost(self) -> FeaturesHost:
         if self._host is None:
             with span("get", request=self._request):
-                self._check_saturation()
-                self._host = FeaturesHost(self._raw)
+                if self._packed is None:
+                    self._check_saturation()
+                    self._host = FeaturesHost(self._raw)
+                else:
+                    self._host = self._packed_host()
+                    self._packed = None
         return self._host
+
+    def _packed_host(self) -> FeaturesHost:
+        """The kept rows in two waits: for the header's counts, then for
+        the copy of the packed prefix that holds them into pinned host
+        memory, from which the arrays are copied out."""
+        rows, header, ready = self._packed
+        with span("check"):
+            wait(ready)
+            head = header.numpy()
+            self._check_saturation(head)
+        n_kp, n_desc = int(head[0]), int(head[1])
+        with span("copy"):
+            data = queue_to_host(rows.data[:packed_offsets(n_kp, n_desc)[1]])
+            wait(stream_mark(rows.data.device))
+        with span("compact"):
+            count("frames.packed")
+            # copied out, so that the pinned block goes back to the caching
+            # allocator for the next get: results that kept pinned memory
+            # would each need a fresh pinned allocation, whose cost grows
+            # with the pinned memory held (1.4 ms a 1080p frame and more
+            # on an H100's host)
+            return FeaturesHost(unpack_kept(data.numpy().copy(), n_kp,
+                                            n_desc))
 
     def getDev(self) -> FeaturesDev:
         with span("get", request=self._request):
@@ -285,9 +343,7 @@ class PopSift:
         immediately"); the job's ``get`` waits."""
         with span("enqueue") as s:
             image = _check_image(np.asarray(image), "enqueue")
-            plan = self._plan_for(*image.shape)
-            return SiftJob(extract(image, plan, self.device, **self._routes),
-                           plan, mode=self._mode, request=s.request)
+            return self._submit(image[None], s.request)[0]
 
     def enqueue_batch(self, images) -> list:
         """Submit F same-sized grayscale frames as one batched extraction
@@ -302,12 +358,25 @@ class PopSift:
                                or im.dtype != imgs[0].dtype for im in imgs):
                 raise ValueError("enqueue_batch expects F >= 1 frames of one "
                                  "shape and type")
-            plan = self._plan_for(*imgs[0].shape)
-            out = extract_batch(np.stack(imgs), plan, self.device,
-                                **self._routes)
+            return self._submit(np.stack(imgs), s.request)
+
+    def _submit(self, frames: np.ndarray, request) -> list:
+        """One extraction of ``frames`` [F, H, W] and a job a frame. In
+        extracting mode it also packs the kept rows, and the header of
+        their counts is copied to pinned host memory behind it."""
+        plan = self._plan_for(*frames.shape[1:])
+        F = len(frames)
+        if self._mode == "matching":
+            out = extract_batch(frames, plan, self.device, **self._routes)
             return [SiftJob(frame_features(out, f), plan, mode=self._mode,
-                            request=s.request)
-                    for f in range(len(imgs))]
+                            request=request) for f in range(F)]
+        out, packed = extract_batch(frames, plan, self.device, pack=True,
+                                    **self._routes)
+        header = queue_to_host(packed.header)
+        ready = stream_mark(self.device)
+        return [SiftJob(frame_features(out, f), plan, request=request,
+                        packed=(frame_features(packed, f), header[f], ready))
+                for f in range(F)]
 
     def uninit(self):
         """Drop the plans with their CUDA graphs."""

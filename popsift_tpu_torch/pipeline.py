@@ -34,6 +34,11 @@ launch instead of about 360) and copy the outputs into tensors of the
 call's own, so that each result outlives the next replay. The CPU and
 ``plain`` stay eager.
 
+With ``pack=True`` the extraction also packs, in the same graph, the
+rows that ``api.FeaturesHost`` keeps to the front of buffers of the
+plan's capacity, with a header of counts (:func:`pack_kept`), so that a
+job's ``get`` copies only those rows to the host.
+
 :func:`calibrate_plan` sizes per-octave capacities from a detect-only
 probe (pipeline.py:787-831). :func:`make_extract_fn` is JAX's closure
 over :func:`extract`, and ``detect_extrema``, ``assign_orientations``
@@ -52,6 +57,7 @@ once per level, ``front="chain"`` with K7 once per group of levels
 
 from __future__ import annotations
 
+import math
 import threading
 from dataclasses import dataclass, field
 from typing import NamedTuple
@@ -91,6 +97,51 @@ class SiftFeatures(NamedTuple):
     n_descriptors: torch.Tensor
     octave_candidates: torch.Tensor   # i64[n_octaves], saturates at cap
     octave_dropped: torch.Tensor      # i64[n_octaves], density clamp
+
+
+class Packed(NamedTuple):
+    """The rows of a result that ``api.FeaturesHost`` keeps, packed on the
+    run's device; both fields gain a leading [F] axis in a batch.
+    ``data`` holds each field of :data:`PACKED_FIELDS`, its kept rows in
+    row order, back to back from byte 0 (:func:`packed_offsets`), so that
+    all the kept rows are one prefix; the bytes behind it are to be
+    ignored."""
+
+    header: torch.Tensor   # i64[2 + 2 * n_octaves]: kept keypoints,
+    #                        descriptors, octave_candidates, _dropped
+    data: torch.Tensor     # u8[bytes at full capacity]
+
+
+# FeaturesHost's fields in the order Packed.data holds them: (name, dtype,
+# row shape). Larger rows come first and every row's size is a power of
+# two, so that each field starts at a multiple of its row's bytes.
+PACKED_FIELDS = (
+    ("descriptors", torch.float32, (128,)),
+    ("orientations", torch.float32, (4,)),
+    ("octave", torch.int64, ()),
+    ("num_ori", torch.int64, ()),
+    ("desc_to_kp", torch.int64, ()),
+    ("x", torch.float32, ()),
+    ("y", torch.float32, ()),
+    ("sigma", torch.float32, ()),
+    ("ori_valid", torch.bool, (4,)),
+)
+_DESC_FIELDS = ("descriptors", "desc_to_kp")
+# each field's bytes a row, and whether it has a row a descriptor
+_ROWS = tuple((d.itemsize * math.prod(s), n in _DESC_FIELDS)
+              for n, d, s in PACKED_FIELDS)
+
+
+def packed_offsets(n_kp, n_desc) -> tuple:
+    """The byte offset of each field of :data:`PACKED_FIELDS` in
+    ``Packed.data`` for ``n_kp`` kept keypoints and ``n_desc``
+    descriptors (ints, or tensors of one per frame), and the end of the
+    last field."""
+    at, offsets = n_kp * 0, []              # an int, or a tensor as n_kp
+    for row, per_desc in _ROWS:
+        offsets.append(at)
+        at = at + row * (n_desc if per_desc else n_kp)
+    return offsets, at
 
 
 @dataclass(frozen=True)
@@ -233,16 +284,17 @@ def extract(img, plan: ExtractPlan, device, *, plain: bool = False,
 
 
 def extract_batch(imgs, plan: ExtractPlan, device, *, plain: bool = False,
-                  detect: str = "fused",
-                  front: str = "level") -> SiftFeatures:
+                  detect: str = "fused", front: str = "level",
+                  pack: bool = False):
     """Run the pipeline on F same-sized frames at once, ``imgs`` [F, H, W]
     uint8 (or [0, 1] float32) as a numpy array or tensor, on ``device``.
     Every output gains a leading [F] axis; frame f's row equals
     ``extract`` of that frame. ``plain``, ``detect`` and ``front`` as in
-    :func:`extract`. On a CUDA device, from the second call for a key on,
-    the stages after the upload replay as one CUDA graph (see the module
-    docstring); the result is bit for bit the eager one, in tensors of
-    its own."""
+    :func:`extract`. Returns the :class:`SiftFeatures`, or with ``pack``
+    the pair of them and their :class:`Packed` rows. On a CUDA device,
+    from the second call for a key on, the stages after the upload
+    replay as one CUDA graph (see the module docstring); the result is
+    bit for bit the eager one, in tensors of its own."""
     _check_route(detect)
     dev = resolve_device(device)
     imgs = _frames_tensor(imgs, dev)
@@ -253,19 +305,19 @@ def extract_batch(imgs, plan: ExtractPlan, device, *, plain: bool = False,
     count("frames", F)
     count("rows_padded.desc", F * sum(plan.job_caps))
     if dev.type != "cuda" or plain:
-        return _extract_frames(imgs, plan, plain, detect, front)
-    key = (F, dev, imgs.dtype, detect, front)
+        return _extract_frames(imgs, plan, plain, detect, front, pack)
+    key = (F, dev, imgs.dtype, detect, front, pack)
     with plan._graph_lock:
         g = plan._graphs.get(key)
         if g is None:
             # eager: makes the plan's constants, the kernel library and
             # the cached tensors that a capture must find made
             plan._graphs[key] = _SEEN
-            return _extract_frames(imgs, plan, False, detect, front)
+            return _extract_frames(imgs, plan, False, detect, front, pack)
         if g is _SEEN:
             g = plan._graphs[key] = _Graph(
                 imgs, lambda x: _extract_frames(x, plan, False, detect,
-                                                front))
+                                                front, pack))
             count("graph_captures")
         with span("graph"):
             count("frames.graph", F)
@@ -297,7 +349,7 @@ class _Graph:
                 self.graph.capture_end()
         torch.cuda.current_stream(dev).wait_stream(side)
 
-    def run(self, imgs: torch.Tensor) -> SiftFeatures:
+    def run(self, imgs: torch.Tensor):
         """Replay on ``imgs`` [F, H, W] (on the graph's device): copy them
         in, replay, and copy every output into a tensor of the caller's,
         all on the current stream, after the previous run's copies."""
@@ -305,16 +357,24 @@ class _Graph:
         stream.wait_event(self.free)
         self.input.copy_(imgs)
         self.graph.replay()
-        out = SiftFeatures(*(t.clone() for t in self.output))
+        if isinstance(self.output, SiftFeatures):
+            out = _cloned(self.output)
+        else:
+            out = tuple(_cloned(o) for o in self.output)
         self.free.record(stream)
         return out
 
 
+def _cloned(out):
+    return type(out)(*(t.clone() for t in out))
+
+
 def _extract_frames(imgs: torch.Tensor, plan: ExtractPlan, plain: bool,
-                    detect: str, front: str) -> SiftFeatures:
+                    detect: str, front: str, pack: bool = False):
     """The stages after the upload, eagerly: ``imgs`` [F, H, W] on the
     device, checked against the plan. Queues its work and reads nothing
-    back, so that a CUDA graph can capture it."""
+    back, so that a CUDA graph can capture it. With ``pack``, also the
+    :class:`Packed` rows (:func:`extract_batch`)."""
     cfg = plan.config
     dev = imgs.device
     F = imgs.shape[0]
@@ -391,7 +451,7 @@ def _extract_frames(imgs: torch.Tensor, plan: ExtractPlan, plain: bool,
     with span("tail"):
         valid = g.valid.view(F, Ktot)
         desc_valid = desc_valid.view(F, Jtot)
-        return SiftFeatures(
+        feats = SiftFeatures(
             x=(g.x * const.scale).view(F, Ktot),
             y=(g.y * const.scale).view(F, Ktot),
             sigma=(g.sigma * const.scale).view(F, Ktot),
@@ -408,6 +468,73 @@ def _extract_frames(imgs: torch.Tensor, plan: ExtractPlan, plain: bool,
             octave_candidates=rows.n_found,
             octave_dropped=rows.n_dropped,
         )
+        return (feats, pack_kept(feats)) if pack else feats
+
+
+def _partition(mask: torch.Tensor):
+    """Each row's place in the stable partition of each frame's rows
+    (``mask`` [F, N]) that puts the rows of ``mask`` first, and their
+    number a frame: one prefix sum, nothing read back."""
+    m = mask.long()
+    upto = m.cumsum(1)
+    before = upto - m                  # rows of mask before each row
+    n = upto[:, -1]
+    i = torch.arange(mask.shape[1], device=mask.device)
+    return torch.where(mask, before, n[:, None] + i - before), n
+
+
+def pack_kept(feats: SiftFeatures) -> Packed:
+    """The rows ``api.FeaturesHost`` keeps of a batched result ([F, ...]
+    fields), packed on its device at static shapes (:class:`Packed`):
+    the keypoints that are valid with at least one orientation, the valid
+    descriptors, and each descriptor's keypoint as its place among the
+    kept ones. Prefix sums and scatters only, nothing read back, so that
+    a CUDA graph can capture it."""
+    keep = feats.valid & (feats.num_ori > 0)
+    kp_to, n_kp = _partition(keep)
+    d_to, n_desc = _partition(feats.desc_valid)
+    src = dict(x=feats.x, y=feats.y, sigma=feats.sigma, octave=feats.octave,
+               num_ori=feats.num_ori, orientations=feats.ori,
+               ori_valid=feats.ori_valid, descriptors=feats.desc,
+               desc_to_kp=torch.where(keep, kp_to, -1).gather(
+                   1, feats.desc_kp))
+    F, K = keep.shape
+    offsets, _ = packed_offsets(n_kp, n_desc)
+    _, size = packed_offsets(K, feats.desc_valid.shape[1])
+    size = -(-size // 512) * 512          # a whole number of every row
+    data = torch.empty(F, size, dtype=torch.uint8, device=keep.device)
+    # Each field's rows are scattered whole: the kept ones to its place,
+    # the others behind them, into the places of the fields after it.
+    # Those are scattered later, in this order, so the prefix ends up
+    # holding every field's kept rows.
+    for (name, dtype, shape), (row, per_desc), at in zip(
+            PACKED_FIELDS, _ROWS, offsets):
+        to = (d_to if per_desc else kp_to) + (at // row)[:, None]
+        rows = data.view(dtype).view(F, size // row, *shape)
+        idx = to.view(*to.shape, *(1,) * len(shape)).expand_as(src[name])
+        rows.scatter_(1, idx, src[name])
+    return Packed(header=torch.cat([n_kp[:, None], n_desc[:, None],
+                                    feats.octave_candidates,
+                                    feats.octave_dropped], 1),
+                  data=data)
+
+
+_NUMPY = {torch.float32: np.float32, torch.int64: np.int64,
+          torch.bool: np.bool_}
+
+
+def unpack_kept(data: np.ndarray, n_kp: int, n_desc: int) -> dict:
+    """FeaturesHost's arrays by name, as views of ``data``: the first
+    bytes of a frame's ``Packed.data`` (u8, at least up to
+    ``packed_offsets(n_kp, n_desc)[1]``) on the host."""
+    offsets, _ = packed_offsets(n_kp, n_desc)
+    out = {}
+    for (name, dtype, shape), (row, per_desc), at in zip(
+            PACKED_FIELDS, _ROWS, offsets):
+        n = n_desc if per_desc else n_kp
+        out[name] = data[at:at + n * row].view(_NUMPY[dtype]).reshape(
+            n, *shape)
+    return out
 
 
 def make_extract_fn(plan: ExtractPlan, device, desc_chunk: int = 1024):
@@ -421,18 +548,24 @@ def make_extract_fn(plan: ExtractPlan, device, desc_chunk: int = 1024):
     return lambda img: extract(img, plan, dev)
 
 
-def frame_features(feats: SiftFeatures, f: int) -> SiftFeatures:
-    """Frame ``f`` of a batched result (the leading axis dropped)."""
-    return SiftFeatures(*(a[f] for a in feats))
+def frame_features(feats, f: int):
+    """Frame ``f`` of a batched result, :class:`SiftFeatures` or
+    :class:`Packed` (the leading axis dropped)."""
+    return type(feats)(*(a[f] for a in feats))
 
 
 def saturation_report(feats: SiftFeatures, plan: ExtractPlan) -> list:
     """Warnings when an octave hit its candidate capacity or the
     compaction density clamp dropped candidates (the reference clamps
     silently, s_extrema.cu:551-561)."""
+    return saturation_messages(to_host(feats.octave_candidates),
+                               to_host(feats.octave_dropped), plan)
+
+
+def saturation_messages(cand, dropped, plan: ExtractPlan) -> list:
+    """:func:`saturation_report`'s warnings from the per-octave candidate
+    and dropped counts on the host."""
     warnings = []
-    cand = to_host(feats.octave_candidates)
-    dropped = to_host(feats.octave_dropped)
     for octv, cap in enumerate(plan.ext_caps):
         if cand[octv] >= cap:
             warnings.append(

@@ -15,9 +15,11 @@ main.cpp:117):
   where it ends; on a machine with a CUDA device it also pushes and pops
   an NVTX range of its name.
 * :func:`count` adds to the current request's counters and to the
-  process's totals, only while tracing is on. :func:`to_host` is the
-  program's one blocking device-to-host read, counted as ``host_syncs``
-  and ``d2h_bytes``.
+  process's totals, only while tracing is on. :func:`to_host` is a
+  blocking device-to-host read, counted as one of ``host_syncs`` and
+  its bytes as ``d2h_bytes``; :func:`queue_to_host` queues a copy into
+  pinned host memory, counted in ``d2h_bytes``, and :func:`wait` is the
+  blocking wait for such copies, one of ``host_syncs``.
 * :func:`spans`, :func:`counters` and :func:`reset` read and clear what
   was recorded; :func:`summary` is the table of self host ms per span
   name and the counters a request.
@@ -179,6 +181,36 @@ def to_host(t: torch.Tensor) -> np.ndarray:
         count("host_syncs")
         count("d2h_bytes", t.nbytes)
     return t.cpu().numpy()
+
+
+def queue_to_host(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of ``t`` of its own, its bytes counted as
+    ``d2h_bytes``. From a CUDA device the copy lands in pinned memory and
+    is queued on the current stream: complete once a later :func:`wait`
+    returns."""
+    if _on or _autograd_profiler._is_profiler_enabled:
+        count("d2h_bytes", t.nbytes)
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
+    return out.copy_(t, non_blocking=True)
+
+
+def stream_mark(device: torch.device):
+    """An event recorded on ``device``'s current stream, or None on a
+    device whose work is done when queued (the CPU)."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+def wait(mark) -> None:
+    """Block until the stream has passed ``mark`` (:func:`stream_mark`;
+    None returns at once), counted as one of ``host_syncs``."""
+    if _on or _autograd_profiler._is_profiler_enabled:
+        count("host_syncs")
+    if mark is not None:
+        mark.synchronize()
 
 
 def spans() -> list:

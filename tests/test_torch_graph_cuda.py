@@ -17,7 +17,9 @@ fronts and both input types, and the five golden scenes' configurations
 and the chip smoke test's variants on a smaller frame. Also: jobs held
 open across later replays keep their own results, a replay makes no
 stream synchronisation, a second frame size captures a graph of its own,
-``configure`` drops the graphs, and the counters.
+``configure`` drops the graphs, and the counters. An extracting job's
+packed ``get`` from a replay equals the eager one bit for bit, its
+arrays outlive later jobs on the plan, and matching mode packs nothing.
 """
 
 import gc
@@ -127,7 +129,7 @@ def _replays_bit_equal(cfg, h, w, F, dev, dtype=torch.uint8,
     got = [pipeline.extract_batch(a, plan, dev, **routes) for _ in range(3)]
     got_b = pipeline.extract_batch(b, plan, dev, **routes)
     c = P.counters()
-    assert isinstance(plan._graphs[(F, dev, dtype, detect, front)],
+    assert isinstance(plan._graphs[(F, dev, dtype, detect, front, False)],
                       pipeline._Graph)
     want = pipeline._extract_frames(a, plan, False, detect, front)
     want_b = pipeline._extract_frames(b, plan, False, detect, front)
@@ -176,7 +178,8 @@ def test_open_jobs_keep_their_own_results(dev, mode):
     plan = next(iter(ps._plans.values()))
     for F in (1, 2):
         assert isinstance(plan._graphs[(F, dev, torch.uint8, "fused",
-                                        "level")], pipeline._Graph)
+                                        "level", mode == "extracting")],
+                          pipeline._Graph)
     for job, k in zip([ja, jb] + jobs, [2, 3, 0, 1, 2, 3]):
         want = pipeline._extract_frames(_upload(frames[k:k + 1],
                                                 torch.uint8, dev),
@@ -248,3 +251,77 @@ def test_configure_drops_the_graphs(dev, traced, drop):
     assert "frames.graph" in P.counters()
     plan = next(iter(ps._plans.values()))
     assert list(plan._graphs.values()) == [pipeline._SEEN]
+
+
+def _host_arrays(host) -> dict:
+    from popsift_tpu_torch.api import HOST_FIELDS
+    return {k: getattr(host, k) for k in HOST_FIELDS}
+
+
+def _assert_same_host(got: dict, want: dict):
+    for k, b in want.items():
+        a = got[k]
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        assert np.array_equal(a, b), k
+
+
+@pytest.mark.parametrize("cfg,h,w,F", [(CFG_1080, 1080, 1920, 1),
+                                       (CFG_1080, 1080, 1920, 4)]
+                         + [(SiftConfig(**GOLDEN[n]), 240, 320, 1)
+                            for n in GOLDEN])
+def test_packed_get_from_a_replay_equals_the_eager_one(dev, traced, cfg, h,
+                                                       w, F):
+    """The first call runs eagerly, the second captures the pack with the
+    extraction, the third replays: each job's ``get`` equals the eager
+    call's bit for bit and the NumPy compaction of its padded result,
+    and a ``get`` makes two waits."""
+    from popsift_tpu_torch.api import FeaturesHost
+    frames = list(_frames(F, h, w, 8))
+    ps = PopSift(cfg, device=dev)
+    calls = []
+    for k in range(3):
+        jobs = ps.enqueue_batch(frames) if F > 1 else [ps.enqueue(frames[0])]
+        P.reset()
+        calls.append([_host_arrays(j.get()) for j in jobs])
+        c = P.counters()
+        assert c["host_syncs"] == 2 * F and c["frames.packed"] == F
+        for j, got in zip(jobs, calls[-1]):
+            _assert_same_host(got, _host_arrays(FeaturesHost(j.raw)))
+    plan = next(iter(ps._plans.values()))
+    g = plan._graphs[(F, dev, torch.uint8, "fused", "level", True)]
+    assert isinstance(g.output[1], pipeline.Packed)
+    assert sum(len(f["descriptors"]) for f in calls[0]) > 0
+    for later in calls[1:]:
+        for got, want in zip(later, calls[0]):
+            _assert_same_host(got, want)
+
+
+def test_packed_arrays_outlive_later_jobs(dev):
+    """A job's ``FeaturesHost`` arrays are its own: 20 later
+    ``enqueue(...).get()`` calls on the same plan leave them as they
+    were."""
+    frames = _frames(4, 480, 640, 9)
+    ps = PopSift(SiftConfig(), device=dev)
+    for k in range(2):                         # eager, then capture
+        ps.enqueue(frames[k]).get()
+    host = ps.enqueue(frames[0]).get()
+    kept = {k: v.copy() for k, v in _host_arrays(host).items()}
+    others = [ps.enqueue(frames[1 + k % 3]).get() for k in range(20)]
+    assert all(o.getDescriptorCount() != host.getDescriptorCount()
+               or not np.array_equal(o.descriptors, host.descriptors)
+               for o in others)
+    _assert_same_host(_host_arrays(host), kept)
+
+
+def test_matching_mode_captures_no_pack(dev, traced):
+    ps = PopSift(SiftConfig(), mode="matching", device=dev)
+    img = _frames(1, 240, 320, 10)[0]
+    for _ in range(3):
+        ps.enqueue(img).get()
+    plan = next(iter(ps._plans.values()))
+    assert list(plan._graphs) == [(1, dev, torch.uint8, "fused", "level",
+                                   False)]
+    g = plan._graphs[list(plan._graphs)[0]]
+    assert isinstance(g.output, pipeline.SiftFeatures)
+    c = P.counters()
+    assert "frames.packed" not in c and c["host_syncs"] == 6
