@@ -1,5 +1,5 @@
 """Pure-NumPy scalar SIFT oracle used as the golden reference for the
-port's tests and for ``chip_smoke.py`` (a copy of
+port's tests, on the CPU and on the card (a copy of
 :mod:`popsift_tpu.oracle`; it imports no torch)."""
 
 from .sift_oracle import (

@@ -1,8 +1,8 @@
 """Scalar NumPy SIFT oracle.
 
 A deliberately simple, loop-heavy re-implementation of the reference
-algorithm used ONLY as the golden value source for the port's tests and
-for ``chip_smoke.py``, which holds the card to it. It is the port's own
+algorithm used ONLY as the golden value source for the port's tests,
+which hold the card to it too. It is the port's own
 copy of :mod:`popsift_tpu.oracle.sift_oracle`, class for class and
 function for function (tests/test_torch_imports.py holds the sources
 together); only this docstring differs. Every stage cites the reference

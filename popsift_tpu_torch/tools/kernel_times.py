@@ -20,7 +20,7 @@ with the counts they were given), records the K7 calls of one ``extract(...,
 front="chain")`` of the frame, the K6 calls of one ``extract(...,
 detect="windows")`` of the frame (``K6``) and of one ``extract_batch(...,
 detect="windows")`` of the four frames (``K6_batched``, per batch) and
-the K1 calls of one ``extract`` of ``chip_smoke.synthetic_image`` of the
+the K1 calls of one ``extract`` of :func:`synthetic_image` of the
 same size (``K1_textured``) the same way,
 and replays each kernel's calls of one frame: the median time per frame
 over ``--reps`` replays with CUDA events around the wrapper calls, and
@@ -62,6 +62,22 @@ import numpy as np
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
+
+def synthetic_image(h: int, w: int, seed: int = 0) -> np.ndarray:
+    """The golden scenes' generator, tests/conftest.py::synthetic_image
+    (that module imports jax, which the port's tools must not)."""
+    rng_ = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    img = 40.0 + 20.0 * np.sin(xx / 7.0) * np.cos(yy / 9.0)
+    for _ in range(12):
+        cx, cy = rng_.uniform(0.15, 0.85) * w, rng_.uniform(0.15, 0.85) * h
+        s = rng_.uniform(1.5, min(h, w) / 10.0)
+        a = rng_.uniform(60, 160) * rng_.choice([-1.0, 1.0])
+        img += a * np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * s * s))
+    img[h // 3:, : w // 4] += 50.0
+    img[: h // 5, w // 2:] -= 40.0
+    img += rng_.normal(0, 1.0, size=(h, w))
+    return np.clip(img, 0, 255).astype(np.uint8)
 
 def sass_report(tree: str) -> dict:
     """Registers, spills, shared memory and SASS instruction counts of
@@ -216,8 +232,6 @@ def main(argv=None) -> int:
     extract_batch(frames, fresh(), dev, detect="windows")
     # K1 on a textured frame of the same size (the golden scenes'
     # generator, whose contrast gate skips less of it)
-    sys.path.insert(0, HERE)
-    from chip_smoke import synthetic_image
     active.clear()
     active.add("K1")
     suffix[0] = "_textured"

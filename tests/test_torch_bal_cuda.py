@@ -30,6 +30,8 @@ from popsift_tpu_torch.sfm import ba as B
 from popsift_tpu_torch.sfm import bal as BAL
 from popsift_tpu_torch.sfm import bal_reference as REF
 from popsift_tpu_torch.tools import bal_scene as SC
+from popsift_tpu_torch.tools.sfm_scenes import ba_scene
+from torch_card import card_device
 
 pytestmark = pytest.mark.cuda
 
@@ -38,10 +40,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.fixture(scope="module")
 def dev():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the cell's size runs on the card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda", 0)
+    return card_device("the cell's size runs on the card")
 
 
 @pytest.fixture(scope="module")
@@ -94,21 +93,18 @@ def test_bundle_adjust_does_not_synchronize(dev, dubrovnik):
 
 
 def _six_wide():
-    import chip_smoke
-    fields, _ = chip_smoke.ba_scene(7, noise_px=1.0, n_cams=20,
-                                    n_points=2000)
+    fields, _ = ba_scene(7, noise_px=1.0, n_cams=20, n_points=2000)
     return fields
 
 
 def test_six_wide_results_unchanged(dev):
-    import chip_smoke
     with open(os.path.join(REPO, "tests", "golden", "ba6_h100.json")) as fh:
         golden = json.load(fh)
     was = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         for noise in (0.0, 1.0):
-            fields, _ = chip_smoke.ba_scene(7, noise_px=noise)
+            fields, _ = ba_scene(7, noise_px=noise)
             p = B.problem_from_numpy(fields, dev)
             for name, dense in (("dense", True), ("cg", False)):
                 want = golden[f"{name}_{noise}"]

@@ -14,7 +14,7 @@ for bit to
 frames, in every field of ``SiftFeatures``: the 1080p configuration of
 the benchmark at one and four frames on both detection routes, both
 fronts and both input types, and the five golden scenes' configurations
-and the chip smoke test's variants on a smaller frame. Also: jobs held
+and the card tests' variants on a smaller frame. Also: jobs held
 open across later replays keep their own results, a replay makes no
 stream synchronisation, a second frame size captures a graph of its own,
 ``configure`` drops the graphs, and the counters. An extracting job's
@@ -34,6 +34,7 @@ from popsift_tpu_torch import pipeline
 from popsift_tpu_torch.api import PopSift
 from popsift_tpu_torch.config import SiftConfig
 from popsift_tpu_torch.utils import profiling as P
+from torch_card import card_device
 
 pytestmark = pytest.mark.cuda
 
@@ -50,7 +51,8 @@ GOLDEN = {
     "iloop_interp": dict(octaves=3, desc_mode="iloop",
                          downscale_mode="interpolate"),
 }
-# chip_smoke.VARIANTS beyond the golden ones
+# test_torch_pipeline_cuda.VARIANTS beyond the golden ones (the grid
+# filter at 100 extrema on this smaller frame)
 VARIANTS = {
     "sift_opencv": dict(sift_mode="opencv"),
     "direct": dict(scaling_mode="direct"),
@@ -68,9 +70,7 @@ VARIANTS = {
 
 @pytest.fixture
 def dev():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: a CUDA graph runs only on the card")
-    return torch.device("cuda", 0)
+    return card_device("a CUDA graph runs only on the card")
 
 
 @pytest.fixture

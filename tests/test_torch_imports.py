@@ -1,4 +1,5 @@
-"""The port imports nothing of jax or of the JAX package, and its own
+"""The port and its card tests import nothing of jax or of the JAX
+package, no module of the port imports ``chip_smoke.py``, and its own
 copies of the shared plain-Python modules agree with the originals:
 ``SiftConfig`` field for field and default for default, the Gauss tables
 bit for bit, ``sfm/tracks.py``, ``sfm/export.py``,
@@ -11,6 +12,7 @@ bit for bit, ``sfm/tracks.py``, ``sfm/export.py``,
 
 import ast
 import dataclasses
+import glob
 import importlib.util
 import inspect
 import os
@@ -106,6 +108,31 @@ def test_source_imports_neither_jax_nor_the_jax_package(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "popsift_tpu"), \
             f"{os.path.relpath(path, REPO)} imports {name}"
+
+
+@pytest.mark.parametrize(
+    "path", sorted(glob.glob(os.path.join(REPO, "tests",
+                                          "test_torch_*_cuda.py")))
+    + [os.path.join(REPO, "tests", "torch_card.py")],
+    ids=os.path.basename)
+def test_card_test_imports_neither_jax_nor_the_jax_package(path):
+    """The card's machine has no jax, and its tests run with
+    ``--noconftest``; ``torch_card.py`` is what they share."""
+    for name in _imported_modules(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "popsift_tpu"), \
+            f"{os.path.basename(path)} imports {name}"
+
+
+def test_no_port_module_imports_chip_smoke():
+    """The card check's runner sits above the package: nothing in
+    ``popsift_tpu_torch/`` reaches up into it."""
+    for path in _port_sources():
+        if os.path.relpath(path, REPO) == "chip_smoke.py":
+            continue
+        for name in _imported_modules(path):
+            assert name.split(".")[0] != "chip_smoke", \
+                f"{os.path.relpath(path, REPO)} imports {name}"
 
 
 def test_siftconfig_fields_and_defaults_equal():

@@ -4,7 +4,7 @@ A CUDA kernel has no CPU or interpret mode, so these tests need a CUDA
 device (and nvcc, to build popsift_tpu_torch/csrc on first use); they
 skip without one. On the card:
 
-    python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda
+    python -m pytest tests/test_torch_kernels_cuda.py -q --noconftest -m cuda
 
 Tolerances: blur/DoG levels (K5 and the chain K7), masks, window copies
 and refinement state exact (the kernels are built with -fmad=false and
@@ -19,10 +19,15 @@ extraction of an uploaded frame runs with no stream synchronisation.
 The all-octave launches of K2, K3 and K4 with the row bounds of a band
 (``parallel/spatial.py``) against their plain versions by the same
 tolerances, counted on their own; with whole-frame bounds bit-equal to
-the unbounded launch.
+the unbounded launch. Then every kernel again at the shapes the main
+path gives it on the 1080p bench frame, the batched entries on four
+frames, by the same tolerances except K5's level launches (within 1e-4
+on the 0..255 scale) and K2's single-octave launches (state within 1e-5,
+the accept masks equal).
 """
 
 import math
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -35,15 +40,14 @@ from popsift_tpu_torch.ops import pyramid as pyr
 from popsift_tpu_torch.ops.kernels import (blur_chain, blur_dog, compact,
                                            desc, extrema_mask, orient, refine,
                                            window)
+from torch_card import FRAME_HW, N_FRAMES, card_device, rel_row_err
 
 pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
 def dev():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels run only on the card")
-    return torch.device("cuda", 0)
+    return card_device()
 
 
 def _dog(dev, D=5, H=97, W=131, seed=0):
@@ -714,3 +718,394 @@ def test_orientation_and_descriptor_bounded_kernels(dev, band):
     assert torch.equal(whole, desc.descriptor_loop_octaves(
         [blur], [n], x, y, s, lv, ang, valid, 51, y_offsets=[0],
         y_bounds=[(1, H - 2)]))
+
+
+# ---------------------------------------------------------------------------
+# The kernels at the shapes the main path gives them on the bench frame
+# (bench.make_frame at 1920 x 1080, seeds 0-3; SiftConfig(
+# extrema_capacity=8192)): all octaves of frame 0, and the batched entries
+# on the four frames.
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def frame0():
+    """The bench frames, the plan of ``SiftConfig(extrema_capacity=8192)``
+    and frame 0's pyramid on the card."""
+    dev = card_device()
+    import bench
+    from popsift_tpu_torch.pipeline import build_extract_plan
+    frames = [bench.make_frame(*FRAME_HW, seed=s)
+              for s in range(N_FRAMES)]
+    cfg = SiftConfig(extrema_capacity=8192)
+    plan = build_extract_plan(cfg, *FRAME_HW)
+    blurs, dogs = pyr.build_pyramid(torch.from_numpy(frames[0]).to(dev),
+                                    plan.pyramid)
+    return SimpleNamespace(
+        dev=dev, frames=frames, cfg=cfg, plan=plan, blurs=blurs, dogs=dogs,
+        caps=plan.ext_caps, dims=plan.pyramid.dims,
+        thr1=float(np.float32(extrema._first_threshold(cfg))),
+        kw=dict(maxlevel=cfg.total_levels - 1,
+                vlfeat=cfg.sift_mode == "vlfeat"))
+
+
+@pytest.fixture(scope="module")
+def stages(frame0):
+    """What each stage of frame 0 hands the next, through the
+    single-octave kernels: each octave's candidates, K2's refined state,
+    the keypoints, K3's histograms and the descriptor jobs."""
+    from popsift_tpu_torch.ops import descriptors as D
+    from popsift_tpu_torch.ops import orientation as O
+    cfg, caps, dims, dogs = frame0.cfg, frame0.caps, frame0.dims, frame0.dogs
+    nO = len(caps)
+    cands = [extrema.collect_candidates(d, cfg, caps[o])
+             for o, d in enumerate(dogs)]
+    nf = [int(c.n_found) for c in cands]
+    args = [(dogs[o], c.x0, c.y0, c.z0, nf[o]) for o, c in enumerate(cands)]
+    sk = torch.cat([refine.refine_state(*a, **frame0.kw) for a in args])
+    dev = frame0.dev
+    w_row = torch.as_tensor(np.concatenate(
+        [np.full(caps[o], dd[1]) for o, dd in enumerate(dims)]), device=dev)
+    h_row = torch.as_tensor(np.concatenate(
+        [np.full(caps[o], dd[0]) for o, dd in enumerate(dims)]), device=dev)
+    cvalid = torch.cat([c.valid for c in cands])
+    g = extrema.finalize_refined(sk, cvalid, cfg, w_row, h_row, 0, 0)
+    offs = np.concatenate([[0], np.cumsum(caps)]).astype(int)
+    R = O.max_ori_radius(cfg)
+    oargs = []
+    for o in range(nO):
+        sl = slice(offs[o], offs[o + 1])
+        oargs.append((frame0.blurs[o], g.x[sl], g.y[sl], g.sigma[sl],
+                      g.level[sl], g.valid[sl], nf[o], R))
+    hk = torch.cat([orient.orientation_hist(*a) for a in oargs])
+    oris = O.orientations_from_histograms(hk, g.valid)
+    segs = tuple((int(offs[o]), caps[o], frame0.plan.job_caps[o])
+                 for o in range(nO))
+    jobs, counts = D.make_descriptor_jobs_segmented(
+        g.x, g.y, g.sigma, g.level, oris.ori, oris.ori_valid, segs)
+    joff = np.concatenate([[0], np.cumsum(frame0.plan.job_caps)]
+                          ).astype(int)
+    counts = counts.tolist()
+    radius = D.loop_patch_radius(cfg)
+    dargs = []
+    for o in range(nO):
+        sl = slice(joff[o], joff[o + 1])
+        dargs.append((frame0.blurs[o], jobs.x[sl], jobs.y[sl],
+                      jobs.sigma[sl], jobs.level[sl], jobs.ang[sl],
+                      jobs.valid[sl], counts[o], radius))
+    return SimpleNamespace(
+        cands=cands, nf=nf, args=args, sk=sk, cvalid=cvalid, w_row=w_row,
+        h_row=h_row, g=g, offs=offs, R=R, oargs=oargs, hk=hk, jobs=jobs,
+        counts=counts, joff=joff, radius=radius, dargs=dargs)
+
+
+def test_blur_dog_levels_1080p(frame0):
+    """K5 on every (octave, level) of frame 0 from the same level l-1,
+    the launch of level L-3 also writing the next octave's level 0:
+    within 1e-4 of its plain version on the 0..255 scale, its picks equal
+    to the slice; two ``F.conv2d`` passes and a subtraction (the
+    library's form) within 1e-3 of it."""
+    import torch.nn.functional as Fn
+    dev, cfg, plan, blurs = frame0.dev, frame0.cfg, frame0.plan, frame0.blurs
+    dims = frame0.dims
+    nO = len(dims)
+    bargs = [(blurs[o][l - 1:l], plan.pyramid.inc_kernels[l],
+              torch.empty((1, *dims[o + 1]), device=dev)
+              if l == cfg.total_levels - 3 and o + 1 < nO else None)
+             for o in range(nO) for l in range(1, cfg.total_levels)]
+    err = 0.0
+    for src, k, pick in bargs:
+        got = blur_dog.blur_dog(src, k, pick=pick)
+        want = blur_dog.blur_dog_torch(src, k)
+        err = max(err, float((got[0] - want[0]).abs().max()),
+                  float((got[1] - want[1]).abs().max()))
+        if pick is not None:
+            assert torch.equal(pick, blur_dog.pick_every_second(
+                want[0], *pick.shape[-2:])), tuple(src.shape)
+    assert err <= 1e-4
+    assert sum(a[2] is not None for a in bargs) == nO - 1
+
+    def conv_library(src, kernel):
+        S = (kernel.shape[0] - 1) // 2
+        w = torch.as_tensor(kernel, device=dev)
+        x = src[:, None]
+        h = Fn.conv2d(Fn.pad(x, (S, S, 0, 0), mode="replicate"),
+                      w.view(1, 1, 1, -1))
+        b = Fn.conv2d(Fn.pad(h, (0, 0, S, S), mode="replicate"),
+                      w.view(1, 1, -1, 1))
+        return b[:, 0], b[:, 0] - src
+
+    lerr = max(float((a - b).abs().max()) for src, k, _ in bargs
+               for a, b in zip(conv_library(src, k),
+                               blur_dog.blur_dog(src, k)))
+    assert lerr <= 1e-3
+
+
+def test_blur_dog_thin_entry_1080p(frame0):
+    """K5's one launch over every level of the thin octaves of frame 0,
+    on copies whose first thin octave's level 0 is filled: bit-equal to
+    its plain version and to the pyramid's planes."""
+    cfg, plan, blurs, dogs = frame0.cfg, frame0.plan, frame0.blurs, frame0.dogs
+    nO = len(frame0.caps)
+    ft = pyr.first_thin_octave(plan.pyramid)
+    assert ft < nO, "no octave of the 1080p frame is thin"
+    ks = list(plan.pyramid.inc_kernels[1:])
+    src_lvl = cfg.total_levels - 3
+
+    def thin_args():
+        tb = [torch.zeros_like(blurs[o][None]) for o in range(ft, nO)]
+        tb[0][0, 0] = blurs[ft][0]
+        return tb, [torch.zeros_like(dogs[o][None]) for o in range(ft, nO)]
+
+    tb, td = thin_args()
+    blur_dog.blur_dog_thin(tb, td, ks, src_lvl)
+    pb, pd = thin_args()
+    blur_dog.blur_dog_thin_torch(pb, pd, ks, src_lvl)
+    for a, b in zip(tb + td, pb + pd):
+        assert torch.equal(a, b)
+    for i in range(nO - ft):
+        assert torch.equal(tb[i][0], blurs[ft + i]), ft + i
+        assert torch.equal(td[i][0], dogs[ft + i]), ft + i
+
+
+@pytest.mark.parametrize("F", [1, N_FRAMES])
+def test_blur_chain_1080p(frame0, F):
+    """K7 on every octave of frame 0 (F = 1) and of the four frames, in
+    groups of three, the launch of level L-3 also writing the next
+    octave's level 0: bit-equal to the planes K5 wrote into the pyramid,
+    to its plain version and, its picks, to the next octaves' level 0."""
+    cfg, plan = frame0.cfg, frame0.plan
+    if F == 1:
+        levels_ = [b[None] for b in frame0.blurs]
+        dogs_ = [d[None] for d in frame0.dogs]
+    else:
+        frames = np.stack(frame0.frames)
+        levels_, dogs_ = pyr.build_pyramid_frames(
+            torch.from_numpy(frames).to(frame0.dev), plan.pyramid)
+    nO = len(levels_)
+    kern = list(plan.pyramid.inc_kernels[1:])
+    pick_lvl = cfg.total_levels - 4     # level L-3 among levels 1..L-1
+    for o in range(nO):
+        pk = (torch.full_like(levels_[o + 1][:, 0], -1.0)
+              if o + 1 < nO else None)
+        got = blur_chain.blur_chain(levels_[o][:, 0], kern, pyr.CHAIN_GROUP,
+                                    None, pk, pick_lvl)
+        ppk = None if pk is None else torch.full_like(pk, -2.0)
+        want = blur_chain.blur_chain_torch(levels_[o][:, 0], kern,
+                                           pick=ppk, pick_level=pick_lvl)
+        bad = [n for n, a, b in (
+            ("levels", got[0], levels_[o][:, 1:]),
+            ("DoGs", got[1], dogs_[o]),
+            ("plain levels", want[0], got[0]),
+            ("plain DoGs", want[1], got[1]),
+            ("pick", pk, None if pk is None else levels_[o + 1][:, 0]),
+            ("plain pick", ppk, pk)) if not (a is b or torch.equal(a, b))]
+        assert not bad, (o, bad)
+
+
+def test_extrema_mask_1080p(frame0):
+    """K1 on each octave of frame 0, as single-octave launches and as the
+    one launch over all octaves (bool masks): equal to its plain
+    version."""
+    thr1, Z = frame0.thr1, frame0.cfg.total_levels - 3
+    dstk = [d[:Z + 2].contiguous() for d in frame0.dogs]
+    for d in dstk:
+        assert torch.equal(extrema_mask.candidate_mask(d, thr1),
+                           extrema_mask.candidate_mask_torch(d, thr1))
+    mk = extrema_mask.candidate_mask_octaves(dstk, thr1)
+    for k, d in zip(mk, dstk):
+        assert k.dtype == torch.bool
+        assert torch.equal(k[0], extrema_mask.candidate_mask_torch(
+            d, thr1).view(torch.bool))
+
+
+def test_refine_single_octave_1080p(frame0, stages):
+    """K2's single-octave launches on each octave's candidates: state
+    within 1e-5 of its plain version, the accept masks equal."""
+    sp = torch.cat([refine.refine_state_torch(*a, **frame0.kw)
+                    for a in stages.args])
+    assert float((stages.sk - sp).abs().max()) <= 1e-5
+    gp = extrema.finalize_refined(sp, stages.cvalid, frame0.cfg,
+                                  stages.w_row, stages.h_row, 0, 0)
+    assert torch.equal(stages.g.valid, gp.valid)
+
+
+@pytest.mark.parametrize("plan_caps", ["plan", "saturated"])
+def test_compact_1080p(frame0, stages, plan_caps):
+    """The compaction of all octaves' masks of frame 0 in one call, entry
+    for entry equal to ``_compact_mask`` (its plain version), padding rows
+    included: at the plan's capacities (counts equal to the per-octave
+    collections) and at ``extrema_capacity=256``'s (an octave
+    saturates); then K2's launch over all octaves on those rows,
+    bit-equal to its plain version and, at the plan's capacities, to its
+    single-octave launches."""
+    from popsift_tpu_torch.pipeline import build_extract_plan
+    cfg, dogs, dev = frame0.cfg, frame0.dogs, frame0.dev
+    caps = frame0.caps if plan_caps == "plan" else build_extract_plan(
+        cfg.replace(extrema_capacity=256), *FRAME_HW).ext_caps
+    masks = extrema.candidate_masks(dogs, cfg)
+    pin = cfg.compact_block_k
+    got = compact.compact_octaves(masks, caps, pin, 1)
+    want = compact.compact_octaves_torch(masks, caps, pin, 1)
+    for name, a, b in zip(("x0", "y0", "z0", "n_found", "n_dropped"), got,
+                          want):
+        assert torch.equal(a, b), name
+    if plan_caps == "plan":
+        assert got[3][0].tolist() == stages.nf
+    else:
+        assert bool((got[3] == torch.tensor(caps, device=dev)).any())
+    oargs = (list(dogs), *got[:4], caps, 1)
+    so = refine.refine_state_octaves(*oargs, **frame0.kw)
+    assert torch.equal(so, refine.refine_state_octaves_torch(
+        *oargs, **frame0.kw))
+    if plan_caps == "plan":
+        assert torch.equal(so, stages.sk)
+
+
+def test_window_1080p(frame0, stages):
+    """K6's windows of every octave's candidates of frame 0: equal to its
+    plain version, rows past the count zero."""
+    WR, WP = extrema.WINDOW_RADIUS, extrema.WINDOW_SIDE
+    for o, c in enumerate(stages.cands):
+        a = (frame0.dogs[o], c.y0, c.x0, c.n_found, WR, WP, WP)
+        wk = window.extract_windows(*a)
+        assert torch.equal(wk, window.extract_windows_torch(*a)), o
+        assert bool((wk[stages.nf[o]:] == 0).all()), o
+
+
+def test_orientation_1080p(frame0, stages):
+    """K3 on frame 0's keypoints: its single-octave launches and its one
+    launch over all octaves within 1e-5 x the row's max of its plain
+    version, the two bit-equal, two runs bit-equal; the bucketed
+    launches within 1e-5 x the row's max of the single launch."""
+    oargs, hk, g, R = stages.oargs, stages.hk, stages.g, stages.R
+    hp = torch.cat([orient.orientation_hist_torch(*a) for a in oargs])
+    assert rel_row_err(hk, hp) <= 1e-5
+    hargs = (list(frame0.blurs), [int(e) for e in stages.offs[1:]],
+             g.x, g.y, g.sigma, g.level, g.valid, R)
+    ho = orient.orientation_hist_octaves(*hargs)
+    assert rel_row_err(ho, hp) <= 1e-5
+    assert torch.equal(ho, hk)
+    assert torch.equal(ho, orient.orientation_hist_octaves(*hargs))
+    cfg = frame0.cfg
+    split = cfg.sigma * 2.0 ** (2.5 / cfg.levels)
+    r_small = int(round(3.0 * 1.5 * split))
+    hb = torch.cat([orient.orientation_hist_bucketed(*a[:6], R, split,
+                                                     r_small)
+                    for a in oargs])
+    assert rel_row_err(hb, hk) <= 1e-5
+
+
+def test_descriptor_1080p(frame0, stages):
+    """K4 on frame 0's descriptor jobs: its one launch over all octaves
+    within 1e-5 x the row's max of its plain version, bit-equal to its
+    single-octave launches and to a second run; the bucketed launches
+    within 1e-5 x the row's max of it and of their plain version; the
+    patch entry on the densest octave's jobs (windows of 104 x 128 cut
+    round each, as the JAX tests cut them) within 1e-5 x the row's max of
+    its plain version and of K4 on the jobs whose support fits the
+    static window."""
+    dargs, jobs, radius = stages.dargs, stages.jobs, stages.radius
+    oargs = (list(frame0.blurs), [int(e) for e in stages.joff[1:]],
+             jobs.x, jobs.y, jobs.sigma, jobs.level, jobs.ang, jobs.valid,
+             radius)
+    dk = desc.descriptor_loop_octaves(*oargs)
+    dp = torch.cat([desc.descriptor_loop_torch(*a) for a in dargs])
+    assert rel_row_err(dk, dp) <= 1e-5
+    assert torch.equal(dk, desc.descriptor_loop_octaves(*oargs))
+    assert torch.equal(dk, torch.cat([desc.descriptor_loop(*a)
+                                      for a in dargs]))
+    cfg = frame0.cfg
+    split = cfg.sigma * 2.0 ** (2.5 / cfg.levels)
+    r_small = int(np.ceil(2.5 * 2.0 ** 0.5 * 3.0 * split)) + 2
+    bd = [(*a[:7], radius, split, r_small) for a in dargs]
+    db = torch.cat([desc.descriptor_loop_bucketed(*a) for a in bd])
+    assert rel_row_err(db, dk) <= 1e-5
+    assert rel_row_err(db, torch.cat([desc.descriptor_loop_bucketed(
+        *a, plain=True) for a in bd])) <= 1e-5
+
+    od = int(np.argmax(stages.counts))
+    blur_o, jx, jy, jsig, jlev, jang, jval, jn, _ = dargs[od]
+    prow = -(-(2 * radius + 1) // 8) * 8
+    pcol = -(-(2 * radius + 1) // 128) * 128
+    sel = slice(0, jn)
+    pt, py0, px0 = patches.extract_patches_rect(
+        patches.pad_for_patches(blur_o, max(prow, pcol)), jlev[sel],
+        torch.round(jy[sel]).long(), torch.round(jx[sel]).long(), prow, pcol,
+        radius, radius)
+    pargs = (pt, py0, px0, jx[sel], jy[sel], jsig[sel], jang[sel], jval[sel],
+             *frame0.dims[od])
+    pk = desc.descriptor_loop_patches(*pargs)
+    assert rel_row_err(pk, desc.descriptor_loop_patches_torch(*pargs)) \
+        <= 1e-5
+    ks = desc.descriptor_loop(blur_o, jx[sel], jy[sel], jsig[sel], jlev[sel],
+                              jang[sel], jval[sel], jn, radius)
+    # past the static window the stack entry truncates and wraps as the
+    # XLA twin does, the patch entry pads zeros
+    fits = torch.ceil(jsig[sel] * (3.0 * 2.5 * 2.0 ** 0.5)) + 2 <= radius
+    assert rel_row_err(pk[fits], ks[fits]) <= 1e-5
+
+
+def test_batched_entries_1080p(frame0):
+    """The four frames, frames back to back on the layer axis: K1's
+    batched entry and its one launch over all octaves of the batch equal
+    to the batched plain version; K2's batched entry equal to its plain
+    version, the accept masks equal; the compaction of the batch entry
+    for entry equal to its plain version, its counts to the per-octave
+    collections; K2's launch over all octaves of the batch bit-equal to
+    its plain version and to its batched launches; K6's batched entry
+    equal to its plain version."""
+    cfg, caps, dims = frame0.cfg, frame0.caps, frame0.dims
+    thr1, kw = frame0.thr1, frame0.kw
+    F, nO = N_FRAMES, len(caps)
+    _, bdogs = pyr.build_pyramid_frames(
+        torch.from_numpy(np.stack(frame0.frames)).to(frame0.dev),
+        frame0.plan.pyramid)
+    bdogs = [d.view(-1, *d.shape[2:]) for d in bdogs]
+    for d in bdogs:
+        assert torch.equal(
+            extrema_mask.candidate_mask_batched(d, F, thr1),
+            extrema_mask.candidate_mask_batched_torch(d, F, thr1))
+    mk = extrema_mask.candidate_mask_octaves(bdogs, thr1, F)
+    for k, d in zip(mk, bdogs):
+        assert torch.equal(k.view(torch.uint8),
+                           extrema_mask.candidate_mask_batched_torch(d, F,
+                                                                     thr1))
+    del mk
+    bc = [extrema.collect_candidates_batched(d, F, cfg, caps[o])
+          for o, d in enumerate(bdogs)]
+    bargs = [(bdogs[o], c.x0, c.y0, c.z0, c.n_found, F)
+             for o, c in enumerate(bc)]
+    sk = [refine.refine_state_batched(*a, **kw) for a in bargs]
+    sp = [refine.refine_state_batched_torch(*a, **kw) for a in bargs]
+    for o, c in enumerate(bc):
+        assert torch.equal(sk[o], sp[o]), o
+        h, w = dims[o]
+        va = extrema.finalize_refined(sk[o], c.valid.reshape(-1), cfg, w, h,
+                                      0, 0)
+        vb = extrema.finalize_refined(sp[o], c.valid.reshape(-1), cfg, w, h,
+                                      0, 0)
+        assert torch.equal(va.valid, vb.valid), o
+
+    bmasks = extrema.candidate_masks(bdogs, cfg, F)
+    pin = cfg.compact_block_k
+    brow = compact.compact_octaves(bmasks, caps, pin, F)
+    want = compact.compact_octaves_torch(bmasks, caps, pin, F)
+    for name, a, b in zip(("x0", "y0", "z0", "n_found", "n_dropped"), brow,
+                          want):
+        assert torch.equal(a, b), name
+    for o, c in enumerate(bc):
+        assert brow[3][:, o].tolist() == c.n_found.tolist(), o
+    bo_args = (bdogs, *brow[:4], caps, F)
+    sbo = refine.refine_state_octaves(*bo_args, **kw)
+    assert torch.equal(sbo, refine.refine_state_octaves_torch(*bo_args,
+                                                              **kw))
+    boffs = np.concatenate([[0], np.cumsum(caps)]).astype(int)
+    for o in range(nO):
+        assert torch.equal(sbo.view(F, -1, 16)[:, boffs[o]:boffs[o + 1]],
+                           sk[o].view(F, caps[o], 16)), o
+    del bmasks, brow, sbo
+    WR, WP = extrema.WINDOW_RADIUS, extrema.WINDOW_SIDE
+    for o, c in enumerate(bc):
+        a = (bdogs[o], c.y0, c.x0, c.n_found, F, WR, WP, WP)
+        assert torch.equal(window.extract_windows_batched(*a),
+                           window.extract_windows_batched_torch(*a)), o

@@ -224,9 +224,9 @@ def test_global_cli_against_jax_cli(tmp_path, monkeypatch, capsys):
     """``--global`` on every tenth of the artifact's first 60 frames
     (4.8 degrees apart): the lines up to ``tracks:`` equal JAX's, both
     place every camera, and the port's ATE is at most twice JAX's or 5 %
-    of the trajectory, whichever is larger (``chip_smoke.py`` phase 11's
-    rule for ``--global``). The points and the BA cost are not held to
-    JAX's:
+    of the trajectory, whichever is larger (the rule for ``--global`` of
+    tests/test_torch_sfm_cuda.py). The points and the BA cost are not
+    held to JAX's:
     the view-graph edges hold 17-28 correspondences, so most of each
     RANSAC's 8-row samples (drawn with replacement) repeat a row, and a
     rank-deficient 8-point system's null vector is whatever its SVD
