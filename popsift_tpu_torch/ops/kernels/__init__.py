@@ -21,11 +21,13 @@ calls in which it launched the kernel beneath it. ``refine_octaves_bounded``,
 ``orientation_hist_octaves_bounded`` and ``descriptor_loop_octaves_bounded``
 count the launches over all octaves that carry row bounds (a row band of
 ``parallel/spatial.py``); the same calls without bounds count in the
-unbounded entries.
+unbounded entries. ``match_top2`` is the exact matcher's distance product
+and top-2 selection, one call of its C entry a match (it replaces no
+Pallas kernel: the JAX package matches in XLA).
 """
 
-from . import (blur_chain, blur_dog, compact, desc, extrema_mask, orient,
-               refine, window)
+from . import (blur_chain, blur_dog, compact, desc, extrema_mask, match,
+               orient, refine, window)
 
 # entry name -> (module, counter attribute, file:line of the TPU kernel)
 ENTRIES = {
@@ -61,6 +63,7 @@ ENTRIES = {
                                   orient.REPLACES_OCTAVES_BOUNDED),
     desc.NAME_OCTAVES_BOUNDED: (desc, "launches_octaves_bounded",
                                 desc.REPLACES_OCTAVES_BOUNDED),
+    match.NAME: (match, "launches", match.REPLACES),
 }
 
 

@@ -95,6 +95,10 @@ _SIGNATURES = {
     # radius, out, stream
     "ps_descriptor_loop_octaves": (_VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _I,
                                    _VP, _VP),
+    # dl, L, dr, vr, R, S, scratch, best_d, best_i, second_d, second_i,
+    # stream
+    "ps_match_top2": (_VP, _I, _VP, _VP, _I, _I, _VP, _VP, _VP, _VP, _VP,
+                      _VP),
 }
 
 

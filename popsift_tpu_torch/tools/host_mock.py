@@ -17,7 +17,9 @@ stream>>>(args);`` becomes a call of the stand-in's ``mock_launch`` and
 ``extern __shared__ T name[];`` a pointer into its buffer. Blocks run one
 after another, so this says nothing about races between blocks or about
 speed; ``tests/test_torch_kernels_host.py`` uses it for K1, K3, K4 and
-K5.
+K5, ``tests/test_torch_match_kernel.py`` for the matcher (its cp.async
+copies through ``tools/host_mock/cuda_pipeline_primitives.h``, a copy
+made at once).
 """
 
 from __future__ import annotations
@@ -57,17 +59,19 @@ def rewrite(source: str) -> str:
 
 def build(name: str, defines: tuple = ()) -> str:
     """Path of the host library of ``csrc/<name>.cu``, built if it is
-    not cached under a hash of the source, the stand-in and ``defines``
+    not cached under a hash of the source, the stand-ins and ``defines``
     (``NAME=value`` macros given to the compiler)."""
     cxx = find_compiler()
     if cxx is None:
         raise RuntimeError("g++ not found")
     with open(os.path.join(CSRC, f"{name}.cu")) as fh:
         text = rewrite(fh.read())
-    with open(os.path.join(MOCK_INCLUDE, "cuda_runtime.h")) as fh:
-        flags = [*FLAGS, *(f"-D{d}" for d in defines)]
-        digest = hashlib.sha256((text + fh.read() + " ".join(flags))
-                                .encode()).hexdigest()[:16]
+    flags = [*FLAGS, *(f"-D{d}" for d in defines)]
+    h = hashlib.sha256((text + " ".join(flags)).encode())
+    for header in sorted(os.listdir(MOCK_INCLUDE)):
+        with open(os.path.join(MOCK_INCLUDE, header), "rb") as fh:
+            h.update(fh.read())
+    digest = h.hexdigest()[:16]
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
     if os.path.exists(out):

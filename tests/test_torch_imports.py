@@ -63,6 +63,8 @@ def _imported_modules(path):
 
 def test_port_has_sources():
     rel = {os.path.relpath(p, REPO) for p in _port_sources()}
+    rel |= {os.path.relpath(p, REPO)
+            for p in glob.glob(os.path.join(PORT, "csrc", "*.cu"))}
     assert {"chip_smoke.py", "popsift_tpu_torch/config.py",
             "popsift_tpu_torch/gauss.py", "popsift_tpu_torch/io/image.py",
             "popsift_tpu_torch/runtime/native.py",
@@ -97,8 +99,10 @@ def test_port_has_sources():
             "popsift_tpu_torch/oracle/sift_oracle.py",
             "popsift_tpu_torch/sfm/bal.py",
             "popsift_tpu_torch/sfm/bal_reference.py",
-            "popsift_tpu_torch/tools/bal_scene.py"} <= rel
-    assert len(rel) >= 74
+            "popsift_tpu_torch/tools/bal_scene.py",
+            "popsift_tpu_torch/ops/kernels/match.py",
+            "popsift_tpu_torch/csrc/match.cu"} <= rel
+    assert len(rel) >= 84
 
 
 @pytest.mark.parametrize("path", _port_sources(),

@@ -1,7 +1,8 @@
 """popsift-match on the card: matching-mode extraction of the bench
-frame, the matchers against their CPU runs, RANSAC on the card against
-a known shift and against the CPU from the same ranks, and the match
-CLI.
+frame, the matchers against their CPU runs, the exact matcher's kernel
+(``csrc/match.cu``) against the plain version on the same card, RANSAC
+on the card against a known shift and against the CPU from the same
+ranks, and the match CLI.
 
 These tests need a CUDA device (and nvcc, to build popsift_tpu_torch/csrc
 on first use); they skip without one. On the card:
@@ -10,7 +11,9 @@ on first use); they skip without one. On the card:
 
 The pair is ``bench.make_frame`` at 1920 x 1080 (seed 0) against its
 (3, 5) roll and against seed 1, extracted with
-``PopSift(SiftConfig(extrema_capacity=8192), mode="matching")``.
+``PopSift(SiftConfig(extrema_capacity=8192), mode="matching")``. The
+kernel's sets are seeded unit descriptors in the pair cell's per-octave
+layout (29,450 padded rows a side, about 4 % valid) and at other sizes.
 """
 
 import contextlib
@@ -24,13 +27,30 @@ import torch
 from popsift_tpu_torch.api import PopSift
 from popsift_tpu_torch.config import SiftConfig
 from popsift_tpu_torch.ops import matching as M
+from popsift_tpu_torch.ops.kernels import match as K
 from popsift_tpu_torch.sfm import twoview as T
+from popsift_tpu_torch.utils import profiling
 from torch_card import (BENCH_DESCRIPTORS, BENCH_KEYPOINTS, FRAME_HW,
-                        card_device)
+                        PAIR_NEAR_TIE, card_device, match_differences,
+                        tie_case, without_syncs)
 
 pytestmark = pytest.mark.cuda
 
 SHIFT = (3, 5)
+# the pair cell (SiftConfig() at 800 x 640): the descriptor rows of each
+# octave, and a valid prefix of each near the cell's counts (1,256 rows,
+# 4.3 % of 29,450)
+CELL_CAPS = (20000, 5000, 1250, 640, 640, 640, 640, 640)
+CELL_VALID = (160, 350, 380, 300, 60, 6, 0, 0)
+# (left caps, left valid, right caps, right valid) of each kernel case
+KERNEL_SETS = {
+    "cell": (CELL_CAPS, CELL_VALID, CELL_CAPS, CELL_VALID),
+    "l_ne_r": ((3000, 1000, 517), (400, 200, 90),
+               (5000, 2100, 333), (350, 260, 60)),
+    "ragged": ((1001,), (990,), (777,), (770,)),
+    "one_valid": ((700,), (300,), (600,), (1,)),
+    "no_valid": ((700,), (300,), (600,), (0,)),
+}
 
 
 @pytest.fixture(scope="module")
@@ -264,3 +284,135 @@ def test_match_cli_equals_the_api(pair, tmp_path):
                   .split(": ")[1])
     geom = [l for l in lines if l.startswith("geometric verification")]
     assert rc == 0 and cli_acc == api_acc and len(geom) == 1
+
+
+def _unit(gen, n: int) -> torch.Tensor:
+    x = torch.rand(n, 128, generator=gen, dtype=torch.float64) ** 2
+    return x / x.norm(dim=1, keepdim=True)
+
+
+def _octave_sets(seed: int, caps_l, valid_l, caps_r, valid_r):
+    """Padded f32 descriptor sets on the CPU in the per-octave layout:
+    octave o owns ``caps[o]`` rows, its first ``valid[o]`` valid
+    non-negative unit descriptors (as RootSIFT's), the rest zeros. Three
+    in four of an octave's valid right rows are the left's of the same
+    octave in another order with noise; the others are drawn anew."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def layout(caps, valid, rows):
+        d = torch.zeros(sum(caps), 128, dtype=torch.float64)
+        v = torch.zeros(sum(caps), dtype=torch.bool)
+        o0 = 0
+        for cap, n, r in zip(caps, valid, rows):
+            d[o0:o0 + n], v[o0:o0 + n] = r, True
+            o0 += cap
+        return d.float(), v
+
+    left = [_unit(gen, n) for n in valid_l]
+    right = []
+    for o, n in enumerate(valid_r):
+        r = _unit(gen, n)
+        src = left[o] if o < len(left) else r[:0]
+        k = min(3 * n // 4, src.shape[0])
+        pick = torch.randperm(src.shape[0], generator=gen)[:k]
+        noisy = (src[pick] + 0.03 * torch.randn(
+            k, 128, generator=gen, dtype=torch.float64)).abs()
+        r[:k] = noisy / noisy.norm(dim=1, keepdim=True)
+        right.append(r)
+    return (*layout(caps_l, valid_l, left), *layout(caps_r, valid_r, right))
+
+
+def _plain(dl, vl, dr, vr, ratio=M.RATIO):
+    """The plain version's ``MatchResult`` on the tensors' device."""
+    b_d, b_i, s_d, s_i = K.match_top2_torch(dl, dr, vr)
+    return M.MatchResult(b_i, s_i, b_d, s_d, M._accept(b_d, s_d, vl, ratio))
+
+
+@pytest.fixture(scope="module")
+def kernel_sets():
+    """Each case of ``KERNEL_SETS`` on the card, with its plain result
+    run on the card."""
+    dev = card_device()
+    out = {}
+    for seed, (case, shape) in enumerate(KERNEL_SETS.items()):
+        sets = tuple(t.to(dev) for t in _octave_sets(seed, *shape))
+        out[case] = (sets, _plain(*sets))
+    return out
+
+
+@pytest.mark.parametrize("case", list(KERNEL_SETS))
+def test_kernel_equals_the_plain_path(kernel_sets, case):
+    """The kernel against the plain version on the same card: the pair
+    cell's padded sets, L != R, sizes that are multiples of no tile, a
+    right set with one valid row and with none. Distances within
+    ``MATCH_DIST_TOL`` (the kernel's FMA chain and cuBLAS's product sum
+    in other orders), columns and accepts equal except near-ties, on at
+    most ``PAIR_NEAR_TIE`` of the valid left rows."""
+    (dl, vl, dr, vr), want = kernel_sets[case]
+    got = M.match_descriptors(dl, vl, dr, vr)
+    n_valid = int(vl.sum())
+    assert match_differences(got, want, dl, dr, vl) \
+        <= PAIR_NEAR_TIE * n_valid
+    if case in ("one_valid", "no_valid"):
+        for k in ("best_idx", "second_idx", "accept"):
+            assert torch.equal(getattr(got, k), getattr(want, k)), k
+
+
+def test_kernel_is_deterministic_counted_and_makes_no_sync(kernel_sets):
+    """The pair cell's sets three times: bit-equal results, the launch
+    count up by one a call, ``match.calls`` and ``match.kernel`` up by
+    one a call while tracing, and no host synchronisation (sync debug
+    mode "error")."""
+    (dl, vl, dr, vr), _ = kernel_sets["cell"]
+    before = K.launches
+    profiling.reset()
+    profiling.enable_tracing(True)
+    try:
+        runs = [without_syncs(lambda: M.match_descriptors(dl, vl, dr, vr))
+                for _ in range(3)]
+        torch.cuda.synchronize()
+        counters = profiling.counters()
+    finally:
+        profiling.enable_tracing(False)
+        profiling.reset()
+    assert K.launches - before == 3
+    assert (counters["match.calls"], counters["match.kernel"]) == (3, 3)
+    for run in runs[1:]:
+        for a, b in zip(run, runs[0]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("side", ["left", "right"])
+def test_kernel_empty_sets(kernel_sets, side):
+    """No left row: empty fields; no right row: the plain version's fill
+    values (inf, 0), (inf, 0), no accept. Neither launches."""
+    (dl, vl, dr, vr), _ = kernel_sets["ragged"]
+    if side == "left":
+        dl, vl = dl[:0], vl[:0]
+    else:
+        dr, vr = dr[:0], vr[:0]
+    before = K.launches
+    got = M.match_descriptors(dl, vl, dr, vr)
+    want = _plain(dl, vl, dr, vr)
+    assert K.launches == before
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", ["dupes", "one", "none"])
+def test_kernel_planted_ties(case):
+    """The CPU's planted ties on the card: every field of the kernel's
+    result equal to the CPU's plain run, second_idx included; ``dupes``
+    rows 5 and 7 read (30, 35, 0.0, 0.0, True): the kernel's norms and
+    products are one chain, so an exact duplicate reads 0 exactly."""
+    dev = card_device()
+    dl, vl, dr, vr = (torch.from_numpy(a) for a in tie_case(case))
+    got = M.match_descriptors(dl.to(dev), vl.to(dev), dr.to(dev), vr.to(dev))
+    want = M.match_descriptors(dl, vl, dr, vr, tile=8)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    if case == "dupes":
+        for row in (5, 7):
+            assert (int(got.best_idx[row]), int(got.second_idx[row]),
+                    float(got.best_dist[row]), float(got.second_dist[row]),
+                    bool(got.accept[row])) == (30, 35, 0.0, 0.0, True)

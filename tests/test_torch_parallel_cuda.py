@@ -295,8 +295,9 @@ def test_data_parallel_extraction_world_size_1(dp1):
     with nothing dropped, the four ring pairs bit-equal to
     ``match_descriptors``, the run under sync debug mode "error" equal;
     its second call launches what ``extract_batch``'s second call does,
-    every kernel of the main path, the all-octave ones once."""
-    assert dp1.launches == dp1.want
+    every kernel of the main path, the all-octave ones once, and the
+    matcher's kernel once a ring pair."""
+    assert dp1.launches == {**dp1.want, "match_top2": len(dp1.pairs)}
     assert all(dp1.launches[k] > 0 for k in MAIN_PATH), dp1.launches
     assert all(dp1.launches[k] == 1 for k in FUSED_ONCE), dp1.launches
     for name, a, b in zip(dp1.feats._fields, dp1.feats, dp1.ref):

@@ -438,8 +438,8 @@ def test_first_call_launches(card, case):
     of six wide octaves) and K7 12 times on the chain front; the
     calibration probe the same front and detection (K5, K1, the
     compaction) and nothing after it; the matching mode's two frames
-    (the eager call and the capture) twice the main path; the
-    per-octave chain (a second run: its first makes the constants) K1's
+    (the eager call and the capture) twice the main path and their match
+    the matcher's kernel once; the per-octave chain (a second run: its first makes the constants) K1's
     single-octave entry, the compaction, K2's all-octave entry and K3's
     single-octave entry once per octave, K4's single-octave entry once
     per octave with jobs (9 and 6 at 1080p), K5 at least once and no
@@ -455,9 +455,14 @@ def test_first_call_launches(card, case):
     elif case == "match":
         ps = PopSift(cfg, mode="matching", device=dev)
         shifted = np.roll(frames[0], (3, 5), axis=(0, 1))
-        _, launches = launches_of(lambda: [ps.enqueue(f).get()
-                                        for f in (frames[0], shifted)])
+
+        def pair():
+            d0, ds = (ps.enqueue(f).get() for f in (frames[0], shifted))
+            return d0.match(ds)
+
+        _, launches = launches_of(pair)
         want = {k: 2 * v for k, v in expected_launches(cfg, plan).items()}
+        want["match_top2"] = 1
     elif case == "per_octave_chain":
         uploaded = torch.from_numpy(frames[0]).to(dev)
         per_octave_chain(uploaded, plan)

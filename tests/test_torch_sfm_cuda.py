@@ -36,7 +36,7 @@ from popsift_tpu_torch.tools import sfm_scenes as S
 from popsift_tpu_torch.tools.step_spread import (TRANSLATION_F32_TOL, as_f64,
                                                  gn_step_gaps, gn_steps,
                                                  step_scene, translation_gaps)
-from torch_card import card_device, without_syncs
+from torch_card import PAIR_NEAR_TIE, card_device, without_syncs
 
 pytestmark = pytest.mark.cuda
 
@@ -70,7 +70,6 @@ GLOBAL_E2E_FRAMES = 40         # the driver test's global_sfm size
 GLOBAL_SEEDS = (0, 1, 2, 3, 4, 5, 6)
 JAX_GLOBAL_REGISTERED, JAX_GLOBAL_ATE = 40, 0.016431
 CLI_PARITY_FRAMES = 6
-PAIR_NEAR_TIE = 0.005          # a pair's match count, card against CPU
 
 
 @pytest.fixture(scope="module")
